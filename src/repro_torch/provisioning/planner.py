@@ -1,0 +1,193 @@
+"""Risk-constrained capacity planner (port of ``repro.provisioning.planner``).
+
+POLCA §7: with the T1/T2 controller, the same row power envelope safely
+hosts ~30% more inference servers. :func:`plan_capacity` turns that figure
+into a *search*: it bisects over the number of added servers, evaluating
+each candidate fleet with a Monte-Carlo ensemble of seeded traffic
+realizations on the tick engine, and keeps the largest fleet whose ensemble
+satisfies the risk constraints:
+
+* ``max_brake_prob`` — bound on P[a traffic realization exceeds
+  ``max_brakes`` hardware powerbrakes] (the paper plans for zero);
+* ``max_slo_violation_prob`` — bound on P[a realization misses the Table-5
+  latency SLOs] (percentile gates from ``core.slo``);
+* ``slo_cvar_alpha`` / ``max_slo_cvar`` — the dense-tail CVaR gate on the
+  per-member SLO impact.
+
+The budget is resolved once from the provisioned baseline and held fixed
+across candidates and members: the question is "how far can THIS envelope
+stretch". The survivability gate (``RiskConstraints.survive``) runs the
+routed fleet under a fault timeline and waits for the ports of the fleet
+and the chaos engine.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+from repro_torch.core.slo import DEFAULT_SLO, SLO
+from repro_torch.experiments.scenario import Scenario
+from repro_torch.provisioning.montecarlo import (
+    EnsembleResult,
+    EnsembleSpec,
+    resolve_ensemble_budget,
+    run_ensemble,
+)
+
+_EPS = 1e-12
+
+
+@dataclass(frozen=True)
+class RiskConstraints:
+    """What the planner is allowed to risk across traffic realizations.
+
+    ``max_brakes`` is a per-horizon brake-count budget: a realization is
+    brake-feasible while its powerbrake count stays <= ``max_brakes`` (0
+    keeps the paper's zero-tolerance), and ``max_brake_prob`` bounds the
+    probability of exceeding that budget.
+
+    ``slo_cvar_alpha`` activates the dense-tail CVaR gate: each probe
+    additionally requires CVaR_alpha over the per-member P``slo_cvar_q``
+    SLO impact of ``slo_cvar_priority`` requests to stay <=
+    ``max_slo_cvar``. It needs enough members for the ``(1 - alpha)`` tail
+    to hold one full sample, so ``plan_capacity`` validates ``n_seeds >=
+    ceil(1 / (1 - alpha))``.
+
+    ``survive`` is the JAX package's survivability gate (a fault timeline
+    every probe must ride through); it needs the routed fleet and the chaos
+    engine, which are not ported yet, so it must stay None here."""
+
+    max_brake_prob: float = 0.0  # P[member exceeds the brake budget]
+    max_brakes: int = 0  # brakes tolerated per realization/horizon
+    max_slo_violation_prob: float = 0.0  # P[member misses the SLO]
+    slo: SLO = DEFAULT_SLO
+    survive: Optional[Any] = None  # fault timeline: not ported yet
+    slo_cvar_alpha: Optional[float] = None  # None: CVaR gate off
+    max_slo_cvar: float = 0.0  # bound on CVaR_alpha[per-member Pq impact]
+    slo_cvar_priority: str = "high"  # which priority class the gate watches
+    slo_cvar_q: float = 99.0  # per-member tail percentile fed into CVaR
+
+
+@dataclass
+class PlanPoint:
+    """One bisection probe: a candidate fleet and its ensemble verdict."""
+
+    added_servers: int
+    added_frac: float
+    feasible: bool
+    brake_prob: float
+    slo_violation_prob: float
+    peak_frac_max: float
+    slo_cvar: Optional[float] = None  # CVaR gate value (slo_cvar_alpha set)
+    ensemble: Optional[EnsembleResult] = field(default=None, repr=False)
+
+
+@dataclass
+class PlanResult:
+    """Outcome of one capacity search."""
+
+    scenario_name: str
+    n_provisioned: int
+    budget_w: float
+    safe_added_servers: int
+    probes: List[PlanPoint]
+    capped: bool = False  # search hit max_added_frac while still feasible
+    feasible_at_zero: bool = True
+
+    @property
+    def safe_added_frac(self) -> float:
+        return self.safe_added_servers / self.n_provisioned
+
+    @property
+    def safe_n_servers(self) -> int:
+        return self.n_provisioned + self.safe_added_servers
+
+    def summary(self) -> Dict[str, float]:
+        """The search verdict in one flat dict (benchmark rows)."""
+        return {"safe_added_frac": self.safe_added_frac,
+                "safe_n_servers": float(self.safe_n_servers),
+                "budget_w": self.budget_w,
+                "n_probes": float(len(self.probes))}
+
+
+def plan_capacity(base: Scenario, *,
+                  constraints: RiskConstraints = RiskConstraints(),
+                  n_seeds: int = 4, seed0: int = 1000,
+                  max_added_frac: float = 0.60,
+                  budget_w: Optional[float] = None,
+                  keep_ensembles: bool = False,
+                  engine: str = "cuda", device=None,
+                  **engine_opts) -> PlanResult:
+    """Maximum deployable fleet for ``base``'s traffic family under
+    ``constraints``.
+
+    Bisects over integer added-server counts in ``[0, n_provisioned *
+    max_added_frac]``; each probe runs an ``n_seeds``-member Monte-Carlo
+    ensemble at a pinned budget (resolved from ``base`` once unless
+    ``budget_w`` pins it externally). ``engine`` and ``device`` select the
+    ensemble backend per :func:`~repro_torch.provisioning.montecarlo.
+    run_ensemble`; ``engine_opts`` forward there.
+    """
+    from repro_torch.provisioning.batched import resolve_device
+
+    if constraints.survive is not None:
+        raise ValueError(
+            "RiskConstraints.survive needs the event-driven routed-fleet "
+            "engine with the chaos injector (repro_torch.fleet, "
+            "repro_torch.chaos): not ported to PyTorch yet, and the batched "
+            f"tick engine does not model it (got engine={engine!r})")
+    device = resolve_device(device)
+    n_prov = base.fleet.n_provisioned
+    cvar_alpha = constraints.slo_cvar_alpha
+    if cvar_alpha is not None:
+        min_seeds = int(math.ceil(1.0 / (1.0 - cvar_alpha)))
+        if n_seeds < min_seeds:
+            raise ValueError(
+                f"slo_cvar_alpha={cvar_alpha} needs n_seeds >= {min_seeds} "
+                f"for the (1 - alpha) tail to hold a full member (got "
+                f"n_seeds={n_seeds})")
+    budget = resolve_ensemble_budget(base) if budget_w is None else float(budget_w)
+    probes: List[PlanPoint] = []
+
+    def probe(k: int) -> PlanPoint:
+        sc = base.with_fleet(added_frac=k / n_prov).with_(budget=budget)
+        ens = run_ensemble(EnsembleSpec(sc, n_seeds=n_seeds, seed0=seed0,
+                                        with_reference=True),
+                           budget_w=budget, engine=engine, device=device,
+                           **engine_opts)
+        brake_p = ens.brake_prob(constraints.max_brakes)
+        slo_p = ens.slo_violation_prob(constraints.slo)
+        cvar: Optional[float] = None
+        if cvar_alpha is not None:
+            cvar = ens.slo_cvar(constraints.slo_cvar_priority,
+                                cvar_alpha, q=constraints.slo_cvar_q)
+        pt = PlanPoint(
+            added_servers=k, added_frac=k / n_prov,
+            feasible=(brake_p <= constraints.max_brake_prob + _EPS
+                      and slo_p <= constraints.max_slo_violation_prob + _EPS
+                      and (cvar is None
+                           or cvar <= constraints.max_slo_cvar + _EPS)),
+            brake_prob=brake_p, slo_violation_prob=slo_p,
+            peak_frac_max=float(ens.peak_fracs.max()) if len(ens.peak_fracs) else 0.0,
+            slo_cvar=cvar, ensemble=ens if keep_ensembles else None)
+        probes.append(pt)
+        return pt
+
+    hi = max(1, int(math.floor(n_prov * max_added_frac)))
+    top = probe(hi)
+    if top.feasible:
+        return PlanResult(base.name, n_prov, budget, hi, probes, capped=True)
+    bottom = probe(0)
+    if not bottom.feasible:
+        return PlanResult(base.name, n_prov, budget, 0, probes,
+                          feasible_at_zero=False)
+    lo = 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if probe(mid).feasible:
+            lo = mid
+        else:
+            hi = mid
+    return PlanResult(base.name, n_prov, budget, lo, probes)

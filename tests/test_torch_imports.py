@@ -1,0 +1,111 @@
+"""Guards of the PyTorch port's boundaries.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
+  anything of the JAX package ``repro`` (an AST scan, so imports inside
+  functions count too).
+* Entry points run on the CUDA card unless the caller passes
+  ``device="cpu"``: without CUDA they raise instead of falling back.
+* ``ops.polca_tick`` takes the plain version for CPU tensors without
+  touching the kernel's launch counter; the kernel wrapper refuses CPU
+  tensors.
+* ``chip_smoke.py`` holds the kernel against its plain version on the
+  kernel test shapes of ``tests/test_kernels.py``.
+"""
+
+import ast
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from test_kernels import TICK_CASES, TICK_CONSTS
+
+from repro_torch.experiments.scenario import FleetSpec, Scenario, TrafficSpec
+from repro_torch.kernels import ops, tick
+from repro_torch.provisioning import EnsembleSpec, plan_capacity, run_ensemble
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _small_spec():
+    sc = Scenario(name="guard", duration_s=600.0,
+                  fleet=FleetSpec(n_provisioned=10, n_rows=2),
+                  traffic=TrafficSpec(occ_peak=0.9), budget="nominal")
+    return EnsembleSpec(sc, n_seeds=2)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ensemble(_small_spec())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ensemble(_small_spec(), device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan_capacity(_small_spec().base)
+    res = run_ensemble(_small_spec(), device="cpu")
+    assert res.n_members == 2
+
+
+def test_unknown_engine_raises():
+    with pytest.raises(ValueError, match="engine='cuda'"):
+        run_ensemble(_small_spec(), engine="pallas", device="cpu")
+
+
+def test_cpu_tensors_take_plain_version_without_launching():
+    c = tick.TickConsts(**TICK_CONSTS)
+    args = (torch.full((3, 8, 2), 0.9, dtype=torch.float64),
+            torch.ones((8, 2), dtype=torch.float64),
+            torch.full((2,), 10_000.0, dtype=torch.float64))
+    kw = dict(oob_ticks=5, brake_ticks=2, ring_depth=6, esc=4)
+    tick.polca_tick_loop.launches = 0
+    got = ops.polca_tick(*args, consts=c, **kw)
+    assert tick.polca_tick_loop.launches == 0
+    want = tick.polca_tick_plain(*args, c, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tick.polca_tick_loop(*args, c, **kw)
+    assert tick.polca_tick_loop.launches == 0
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises with a message naming it (and writes
+    nothing); it never substitutes another implementation."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    assert _build.sources() == ["tick"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("tick")
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_chip_smoke_checks_the_kernel_test_shapes():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.TICK_CASES == TICK_CASES
+    assert smoke.TICK_CONSTS == TICK_CONSTS
