@@ -4,14 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card,
-drives the main path at full size — ``run_ensemble`` over a 10^5-member
-dense tail of the repo's dense-tail bench scenario, then a ``plan_capacity``
-bisection on 1024-member probes — and checks that the main path launched
-every kernel. It prints one line per phase, then a JSON line of per-kernel
-measurements, and last ``{"ok": true, "device": {...}}``. Any failed phase
-raises and exits non-zero; without a CUDA device it exits non-zero before
-printing any result.
+``nvcc`` and holds each kernel against its plain PyTorch version on the card
+at the kernel test shapes of ``tests/test_kernels.py`` and at the main-path
+shapes. It then drives the port's two paths at full size and checks that
+each launched its kernels:
+
+* the capacity planner's path: ``run_ensemble`` over a 10^5-member dense
+  tail of the repo's dense-tail bench scenario, then a ``plan_capacity``
+  bisection on 1024-member probes (the tick kernel);
+* the serving path: ``ServeEngine`` on full-width llama3.2-1b with random
+  weights, 8 requests of 1024-token prompts and 128 new tokens (the flash
+  prefill and split-KV decode kernels), its prefill->decode consistency,
+  and a card-vs-CPU check of the same engine on the smoke config.
+
+It prints one line per phase, then a JSON line of per-kernel measurements,
+and last ``{"ok": true, "device": {...}}``. Any failed phase raises and
+exits non-zero; without a CUDA device it exits non-zero before printing any
+result.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -56,6 +65,50 @@ ROW_W_RTOL = 1e-6  # the oracle contract's power tolerance (DESIGN.md §15)
 
 MAIN_MEMBERS = 100_000  # benchmarks/batched_engine.py's full-mode tail
 PLAN_SEEDS = 1024
+
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate
+H100_BF16_FLOPS = 989e12
+
+# the attention kernel shapes of tests/test_kernels.py, dtypes by name
+FLASH_CASES = [
+    # (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, bq, bk)
+    (2, 128, 128, 4, 2, 64, "bfloat16", True, 0, 0.0, 64, 64),
+    (2, 128, 128, 4, 2, 64, "float32", True, 0, 0.0, 64, 64),
+    (1, 256, 256, 8, 8, 64, "bfloat16", True, 64, 0.0, 64, 64),
+    (1, 256, 256, 8, 4, 64, "bfloat16", True, 100, 0.0, 64, 32),
+    (1, 128, 128, 4, 1, 128, "bfloat16", True, 0, 50.0, 64, 64),
+    (1, 128, 128, 4, 1, 128, "float32", True, 0, 30.0, 32, 64),
+    (2, 64, 192, 4, 2, 64, "bfloat16", True, 0, 0.0, 64, 64),  # q_offset
+    (1, 128, 128, 2, 2, 32, "float32", False, 0, 0.0, 64, 64),  # bidir
+    (1, 64, 64, 16, 2, 64, "bfloat16", True, 0, 0.0, 64, 64),  # G=8
+    (1, 256, 256, 4, 4, 256, "bfloat16", True, 128, 30.0, 128, 128),  # gemma2-like
+]
+DECODE_CASES = [
+    # (B, T, H, KV, hd, valid_len, softcap, bk)
+    (2, 512, 8, 2, 64, 300, 0.0, 128),
+    (1, 1024, 4, 4, 128, 1024, 0.0, 256),
+    (3, 512, 16, 8, 64, 17, 0.0, 128),
+    (1, 256, 4, 1, 64, 128, 50.0, 64),
+    (2, 512, 2, 2, 256, 511, 0.0, 512),
+    (1, 128, 32, 4, 64, 1, 0.0, 128),  # single valid slot
+]
+# shapes the Pallas wrapper refuses (tiles do not divide the sequences) and
+# a tile whose every query is past its window (those rows give 0)
+# (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
+RAGGED_FLASH_CASES = [
+    (2, 200, 200, 8, 2, 64, "bfloat16", True, 0, 0.0, 0),
+    (1, 77, 333, 4, 1, 128, "float32", True, 100, 0.0, 256),
+    (1, 200, 200, 8, 8, 16, "float32", True, 0, 0.0, 0),
+    (1, 64, 64, 4, 2, 64, "float32", True, 16, 0.0, 200),
+]
+ATTN_TOL = {"bfloat16": 3e-2, "float32": 2e-5}  # tests/test_kernels.py's
+
+# the serving main path: full-width llama3.2-1b, 8 requests, 1024-token
+# prompts, 128 new tokens (a cache of cache_len(1152) = 1536 slots)
+SERVE_ARCH = "llama3.2-1b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_OUT = 8, 1024, 128
+SERVE_VALID_LEN = 1100  # the decode kernel's main-path timing shape
+SERVE_REL_TOL = 0.06  # tests/test_system.py's prefill->decode bound
 
 
 def main_scenario():
@@ -119,6 +172,325 @@ def compare_tick(got, want, label: str) -> float:
     return max_abs
 
 
+def reset_counts() -> None:
+    """Zero every kernel wrapper's launch count."""
+    from repro_torch.kernels import decode_attention, flash_attention, tick
+    tick.polca_tick_loop.launches = 0
+    flash_attention.flash_attention.launches = 0
+    decode_attention.decode_attention.launches = 0
+
+
+def counts() -> dict:
+    from repro_torch.kernels import decode_attention, flash_attention, tick
+    return {"polca_tick": tick.polca_tick_loop.launches,
+            "flash_attention": flash_attention.flash_attention.launches,
+            "decode_attention": decode_attention.decode_attention.launches}
+
+
+def compare_close(got, want, tol: float, label: str) -> float:
+    """|got - want| <= tol + tol * |want| elementwise (assert_allclose with
+    atol = rtol = tol), both finite. Returns the max absolute gap."""
+    import torch
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{label}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    gap = (g - w).abs()
+    n_bad = int((gap > tol + tol * w.abs()).sum())
+    if n_bad:
+        raise AssertionError(f"{label}: {n_bad} elements beyond {tol} (max "
+                             f"gap {float(gap.max()):.3e})")
+    return float(gap.max())
+
+
+def randn(rng, shape, dtype: str, dev):
+    """Standard normal numpy draws as a tensor of ``dtype`` on ``dev``."""
+    import torch
+    return torch.as_tensor(rng.standard_normal(shape, dtype="float32"),
+                           device=dev).to(getattr(torch, dtype))
+
+
+def check_attention_cases(dev) -> None:
+    """Both attention kernels against their plain versions on the card, at
+    the test shapes of tests/test_kernels.py and the ragged shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+
+    flash = [(*c[:10], c[2] - c[1]) for c in FLASH_CASES] + RAGGED_FLASH_CASES
+    for i, (B, Sq, Skv, H, KV, hd, dt, causal, window, cap, q_off) in enumerate(flash):
+        rng = np.random.default_rng(100 + i)
+        q = randn(rng, (B, Sq, H, hd), dt, dev)
+        k = randn(rng, (B, Skv, KV, hd), dt, dev)
+        v = randn(rng, (B, Skv, KV, hd), dt, dev)
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_off)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        gap = compare_close(got, want, ATTN_TOL[dt], f"flash case {i}")
+        print(f"kernel flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
+              f"hd={hd} {dt} causal={causal} window={window} softcap={cap} "
+              f"q_offset={q_off}: max abs gap {gap:.3e}")
+    for i, (B, T, H, KV, hd, vl, cap, _) in enumerate(DECODE_CASES):
+        rng = np.random.default_rng(200 + i)
+        q = randn(rng, (B, H, hd), "bfloat16", dev)
+        k = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+        v = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+        got = dec.decode_attention(q, k, v, vl, softcap=cap)
+        want = dec.decode_attention_plain(q, k, v, vl, softcap=cap)
+        torch.cuda.synchronize()
+        gap = compare_close(got, want, ATTN_TOL["bfloat16"], f"decode case {i}")
+        print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} "
+              f"valid_len={vl} softcap={cap}: max abs gap {gap:.3e}")
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| / max |a| (tests/test_system.py's measure)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (a.abs().max() + 1e-6))
+
+
+def serve_main_path(dev) -> dict:
+    """ServeEngine on full-width llama3.2-1b: prefill and decode timings,
+    launch counts, determinism and prefill->decode consistency."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, SERVE_PROMPT + SERVE_OUT, SERVE_REQUESTS, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+
+    eng.prefill(eng.params, {"tokens": toks})  # warm-up (library loads, cuBLAS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_full, cache = eng.prefill(eng.params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out1 = eng.generate(tokens, SERVE_OUT)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = counts()
+    want = {"polca_tick": 0, "flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * SERVE_OUT}
+    if launches != want:
+        raise AssertionError(f"generate launched {launches}, want {want}")
+    t0 = time.perf_counter()
+    out2 = eng.generate(tokens, SERVE_OUT)
+    gen2_s = time.perf_counter() - t0
+    if out1.shape != (SERVE_REQUESTS, SERVE_OUT) or not np.array_equal(out1, out2):
+        raise AssertionError("two greedy generate runs differ (or bad shape)")
+    if not ((out1 >= 0).all() and (out1 < cfg.vocab_size).all()):
+        raise AssertionError("generated token ids out of range")
+
+    decode_ms = (gen_s - prefill_s) / SERVE_OUT * 1e3
+    print(f"serving main path ServeEngine({SERVE_ARCH}, full width, "
+          f"{cfg.num_layers} layers, random weights seed 0): init {init_s:.2f} s; "
+          f"{SERVE_REQUESTS} x {SERVE_PROMPT}-token prompts, {SERVE_OUT} new "
+          f"tokens: prefill {prefill_s:.4f} s, generate {gen_s:.3f} s (second "
+          f"run {gen2_s:.3f} s), decode {decode_ms:.3f} ms/token step "
+          f"(derived: (generate - prefill) / {SERVE_OUT}), "
+          f"{SERVE_REQUESTS * SERVE_OUT / gen_s:.1f} output tokens/s; "
+          f"launches {launches}; greedy tokens identical over two runs; "
+          f"sample {out1[0, :8].tolist()}")
+    del eng, logits_full
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefill_decode_gap(eng, toks, logits_full) -> float:
+    """Prefill of the prompt minus its last token, then one decode step of
+    that token, against the full prefill's last logits (rel_gap)."""
+    import torch
+    _, cache = eng.prefill(eng.params, {"tokens": toks[:, :-1]})
+    logits_dec, _ = eng.decode(eng.params, toks[:, -1:], toks.shape[1] - 1, cache)
+    a, b = logits_full[:, -1], logits_dec[:, -1]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite logits")
+    return rel_gap(a, b)
+
+
+def condition_attention(cfg, params) -> None:
+    """Rescale the attention weights in place from the JAX package's init,
+    whose fan-in is the second-to-last dim (the head count for ``wq [D, H,
+    hd]``, the head dim for ``wo [H, hd, D]``), to a fan-in over each
+    product's contraction dims (D for wq/wk/wv, H * hd for wo)."""
+    D, H, KV = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads
+    for blk in params["decoder"].values():
+        a = blk["attn"]
+        a["wq"].mul_((H / D) ** 0.5)
+        a["wk"].mul_((KV / D) ** 0.5)
+        a["wv"].mul_((KV / D) ** 0.5)
+        a["wo"].mul_(H ** -0.5)
+
+
+def serve_consistency(dev) -> None:
+    """Prefill->decode consistency of the full-width model through the
+    kernels, in bf16 and float32. With the JAX package's init the attention
+    scores have a standard deviation of ~85 and each layer multiplies a
+    perturbation several times, so any two computation orders of the
+    16-layer random model (GEMM against GEMV rounding, in either dtype)
+    end O(1) apart: that gap is printed, not gated. The gated check runs
+    the same model with its attention weights rescaled to a fan-in over
+    their contraction dims (:func:`condition_attention`)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+
+    rng = np.random.default_rng(0)
+    for dt in (torch.bfloat16, torch.float32):
+        cfg = get_config(SERVE_ARCH).replace(dtype=dt)
+        eng = ServeEngine(cfg, SERVE_PROMPT + SERVE_OUT, SERVE_REQUESTS, device="cuda")
+        toks = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)), device=dev)
+        reset_counts()
+        full, _ = eng.prefill(eng.params, {"tokens": toks})
+        rel_init = prefill_decode_gap(eng, toks, full)
+        condition_attention(cfg, eng.params)
+        full, _ = eng.prefill(eng.params, {"tokens": toks})
+        rel = prefill_decode_gap(eng, toks, full)
+        launches = counts()
+        if not (launches["flash_attention"] == 4 * cfg.num_layers
+                and launches["decode_attention"] == 2 * cfg.num_layers):
+            raise AssertionError(f"consistency check launched {launches}")
+        if not rel < SERVE_REL_TOL:
+            raise AssertionError(f"{dt} prefill->decode mismatch rel={rel:.3e}")
+        print(f"serving {SERVE_ARCH} full width {str(dt)[6:]}: prefill->decode "
+              f"rel gap {rel:.3e} < {SERVE_REL_TOL} with attention weights at "
+              f"contraction fan-in; {rel_init:.3e} with the JAX init (not gated)")
+        del eng, full
+        torch.cuda.empty_cache()
+
+
+def serve_card_vs_cpu(dev) -> None:
+    """The smoke config served in float32 on the card (the kernels) and on
+    the CPU (their plain versions) with the same weights: logits within
+    1e-4 relative and the same greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = smoke_config(SERVE_ARCH).replace(dtype=torch.float32)
+    gpu = ServeEngine(cfg, 64, 2, device="cuda", seed=3)
+    cpu = ServeEngine(cfg, 64, 2, device="cpu", seed=3)
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+
+    cpu.params = to_cpu(gpu.params)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    lg, _ = gpu.prefill(gpu.params, {"tokens": torch.as_tensor(tokens, device=dev)})
+    lc, _ = cpu.prefill(cpu.params, {"tokens": torch.as_tensor(tokens)})
+    rel = rel_gap(lc, lg.cpu())
+    if not rel < 1e-4:
+        raise AssertionError(f"smoke prefill logits card vs CPU rel {rel:.3e}")
+    a, b = gpu.generate(tokens, 8), cpu.generate(tokens, 8)
+    if not np.array_equal(a, b):
+        raise AssertionError(f"smoke greedy tokens differ card vs CPU: {a} {b}")
+    print(f"serving {cfg.name} float32 card vs CPU: prefill logits rel gap "
+          f"{rel:.3e}, 8 greedy tokens identical")
+
+
+def time_attention(dev, rng_seed: int = 7) -> list:
+    """Each attention kernel at the serving main-path shapes: its time, its
+    plain version's, scaled_dot_product_attention's (a yardstick the port
+    never calls) and its bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import cache_len
+
+    cfg = get_config(SERVE_ARCH)
+    B, S, H, KV, hd = (SERVE_REQUESTS, SERVE_PROMPT, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    rng = np.random.default_rng(rng_seed)
+    q = randn(rng, (B, S, H, hd), "bfloat16", dev)
+    k = randn(rng, (B, S, KV, hd), "bfloat16", dev)
+    v = randn(rng, (B, S, KV, hd), "bfloat16", dev)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    flash_err = compare_close(got, want, ATTN_TOL["bfloat16"], "flash main-path shape")
+    del got, want
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    fa.flash_attention(q, k, v, causal=True)
+    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    flash_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
+    flash_plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3)
+    flash_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    flash_flops = 4 * B * H * hd * S * (S + 1) / 2
+    flash_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v in bf16
+    f_ops_ms = flash_flops / H100_BF16_FLOPS * 1e3
+    f_bytes_ms = flash_bytes / H100_BYTES_PER_S * 1e3
+    flash_bound = max(f_ops_ms, f_bytes_ms)
+    print(f"kernel flash_attention at the main-path shape B={B} S={S} H={H} "
+          f"KV={KV} hd={hd} bf16 causal: {flash_ms:.4f} ms (plain version "
+          f"{flash_plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{flash_lib_ms:.4f} ms; bound {flash_bound:.4f} ms by "
+          f"{'operations' if f_ops_ms >= f_bytes_ms else 'bytes'}: "
+          f"{flash_flops / 1e9:.2f} GFLOP, {flash_bytes / 1e6:.1f} MB); "
+          f"max abs gap {flash_err:.3e}")
+    del q, k, v, qt, kt, vt
+
+    T, vl = cache_len(SERVE_PROMPT + SERVE_OUT), SERVE_VALID_LEN
+    q = randn(rng, (B, H, hd), "bfloat16", dev)
+    k = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+    v = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+    got = dec.decode_attention(q, k, v, vl)
+    want = dec.decode_attention_plain(q, k, v, vl)
+    torch.cuda.synchronize()
+    dec_err = compare_close(got, want, ATTN_TOL["bfloat16"], "decode main-path shape")
+    mask = (torch.arange(T, device=dev) < vl)[None, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dec_ms = cuda_ms(lambda: dec.decode_attention(q, k, v, vl), reps=50)
+    dec_plain_ms = cuda_ms(lambda: dec.decode_attention_plain(q, k, v, vl), reps=10)
+    dec_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
+    dec_bytes = 2 * (2 * B * vl * KV * hd + 2 * B * H * hd)  # valid k, v; q, o
+    dec_flops = 4 * B * H * hd * vl
+    d_ops_ms = dec_flops / H100_BF16_FLOPS * 1e3
+    d_bytes_ms = dec_bytes / H100_BYTES_PER_S * 1e3
+    dec_bound = max(d_ops_ms, d_bytes_ms)
+    print(f"kernel decode_attention at the main-path shape B={B} T={T} H={H} "
+          f"KV={KV} hd={hd} valid_len={vl} bf16: {dec_ms:.4f} ms (plain "
+          f"version {dec_plain_ms:.4f} ms, scaled_dot_product_attention "
+          f"{dec_lib_ms:.4f} ms; bound {dec_bound:.5f} ms by "
+          f"{'operations' if d_ops_ms >= d_bytes_ms else 'bytes'}: "
+          f"{dec_bytes / 1e6:.2f} MB, {dec_flops / 1e9:.3f} GFLOP); max abs "
+          f"gap {dec_err:.3e}; split length {dec.split_len(B * KV, vl, dec._sm_count(dev.index))}")
+    return [
+        dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:32", max_abs_err=flash_err,
+             ms=flash_ms, plain_ms=flash_plain_ms, bound_ms=flash_bound,
+             bound_by="operations" if f_ops_ms >= f_bytes_ms else "bytes",
+             library_ms=flash_lib_ms),
+        dict(name="decode_attention", source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:28", max_abs_err=dec_err,
+             ms=dec_ms, plain_ms=dec_plain_ms, bound_ms=dec_bound,
+             bound_by="operations" if d_ops_ms >= d_bytes_ms else "bytes",
+             library_ms=dec_lib_ms),
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -171,6 +543,8 @@ def main() -> int:
         compare_tick(got, want, f"N={N} T={T} R={R} oob={oob} "
                                 f"brake={brake} esc={esc}")
 
+    check_attention_cases(dev)
+
     sc = main_scenario()
     spec = EnsembleSpec(sc, n_seeds=MAIN_MEMBERS, seed0=1)
     t0 = time.perf_counter()
@@ -209,13 +583,13 @@ def main() -> int:
     del occ
     torch.cuda.empty_cache()
 
-    # 4. the main path at full size: run_ensemble on a 10^5-member tail
-    tick.polca_tick_loop.launches = 0
+    # 4. the planner's main path at full size: run_ensemble on a 10^5-member tail
+    reset_counts()
     t0 = time.perf_counter()
     res = run_ensemble(spec, engine="cuda")
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    main_launches = tick.polca_tick_loop.launches
+    main_launches = counts()["polca_tick"]
     if main_launches < 1:
         raise AssertionError("run_ensemble did not launch the tick kernel")
     if res.n_members != MAIN_MEMBERS:
@@ -257,12 +631,12 @@ def main() -> int:
     cons = RiskConstraints(max_brakes=0, max_slo_violation_prob=1.0,
                            slo_cvar_alpha=0.5, max_slo_cvar=2.0,
                            slo_cvar_priority="low")
-    tick.polca_tick_loop.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     plan = plan_capacity(planner_scenario(), n_seeds=PLAN_SEEDS, seed0=42,
                          engine="cuda", constraints=cons, max_added_frac=0.4)
     plan_s = time.perf_counter() - t0
-    plan_launches = tick.polca_tick_loop.launches
+    plan_launches = counts()["polca_tick"]
     if plan_launches != len(plan.probes):
         raise AssertionError(f"{plan_launches} tick launches for "
                              f"{len(plan.probes)} probes")
@@ -274,7 +648,16 @@ def main() -> int:
           f"safe_added_servers={plan.safe_added_servers} in {plan_s:.2f} s; "
           f"probes {verdicts}; tick kernel launches {plan_launches}")
 
-    print(json.dumps({"kernels": [{
+    # 6. the serving main path at full width, then the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    serve_launches = serve_main_path(dev)
+    serve_consistency(dev)
+    serve_card_vs_cpu(dev)
+
+    # 7. the attention kernels at the serving main-path shapes
+    attn = time_attention(dev)
+
+    kernels = [{
         "name": "polca_tick",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tick.cu",
@@ -286,7 +669,14 @@ def main() -> int:
         "bound_ms": tick_bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }]}))
+    }]
+    for row in attn:
+        kernels.append({"name": row["name"], "route": "cuda", "source": row["source"],
+                        "replaces": row["replaces"],
+                        "launches": serve_launches[row["name"]],
+                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

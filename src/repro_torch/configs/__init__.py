@@ -1,8 +1,10 @@
 """Architecture registry (PyTorch port of ``repro.configs``).
 
-This slice carries the paper's evaluation workload, BLOOM-176B, whose
-roofline terms set the power plane of the Table-4 mix. The other
-architectures come with the serving slice.
+This port carries the paper's evaluation workload, BLOOM-176B, whose
+roofline terms set the power plane of the Table-4 mix, and the dense
+global-attention models the serving path runs: llama3.2-1b, qwen3-8b
+(qk-norm) and yi-34b (padded query heads). The other architectures come
+with the slices that port their blocks (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -13,11 +15,22 @@ from repro_torch.models.config import ModelConfig
 
 ALL = {
     "bloom-176b": "bloom_176b",
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen3-8b": "qwen3_8b",
+    "yi-34b": "yi_34b",
 }
 
 
-def get_config(name: str) -> ModelConfig:
+def _module(name: str):
     if name not in ALL:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ALL)}")
-    mod = importlib.import_module(f"repro_torch.configs.{ALL[name]}")
-    return mod.CONFIG
+    return importlib.import_module(f"repro_torch.configs.{ALL[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    return _module(name).SMOKE

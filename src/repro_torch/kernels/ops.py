@@ -7,7 +7,28 @@ PyTorch version. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tick as _tick
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+    """Prefill attention, q: [B,Sq,H,hd]; k/v: [B,Skv,KV,hd] -> [B,Sq,H,hd]:
+    ``csrc/flash_attention.cu`` on CUDA tensors, :func:`~repro_torch.kernels.
+    flash_attention.flash_attention_plain` on CPU tensors. ``q_offset`` is
+    the absolute position of q[:, 0]."""
+    fn = _fa.flash_attention_plain if q.device.type == "cpu" else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+
+
+def decode_attention(q, k, v, valid_len, *, softcap=0.0):
+    """One-token decode attention, q: [B,H,hd]; k/v: [B,T,KV,hd]; cache slots
+    below the host int ``valid_len`` attend: ``csrc/decode_attention.cu`` on
+    CUDA tensors, :func:`~repro_torch.kernels.decode_attention.
+    decode_attention_plain` on CPU tensors."""
+    fn = _dec.decode_attention_plain if q.device.type == "cpu" else _dec.decode_attention
+    return fn(q, k, v, valid_len, softcap=softcap)
 
 
 def polca_tick(occ, bscale, row_budget, *, consts, oob_ticks, brake_ticks,

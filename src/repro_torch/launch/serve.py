@@ -1,0 +1,106 @@
+"""Serving launcher: batched greedy prefill + decode on one card (PyTorch
+port of ``repro.launch.serve``).
+
+The engine exposes the two phases the paper characterizes (prompt = a
+compute spike, token = a flat memory-bound draw). ``--report-power`` prints
+the Figure-4-style phase profile of the served model from the analytic
+power model POLCA's simulator uses: the paper's modelled A100 server, not a
+measurement of the card this runs on.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --requests 8 --prompt 1024 --out-tokens 128 --report-power
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.power_model import A100, ServerPower
+from repro_torch.core.workload import request_timing
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.models import model as model_mod
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.param import init_params
+
+
+class ServeEngine:
+    """Greedy serving of ``batch`` sequences of up to ``max_len`` tokens.
+
+    Parameters are drawn from ``seed`` on ``device`` (the CUDA card unless
+    ``device="cpu"``) and kept with every weight but the norm scales in the
+    activation dtype (:func:`~repro_torch.models.model.cast_weights`);
+    ``params`` may be replaced by any tree of the same layout, such as
+    :func:`~repro_torch.models.model.load_jax_params`'s."""
+
+    def __init__(self, cfg, max_len: int, batch: int, device="cuda", seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.params = model_mod.cast_weights(
+            cfg, init_params(model_mod.model_specs(cfg), gen))
+        self.prefill = build_prefill_step(cfg, ShapeConfig("serve", max_len, batch, "prefill"))
+        self.decode = build_decode_step(cfg)
+
+    def generate(self, tokens: np.ndarray, n_out: int) -> np.ndarray:
+        """Greedy decode. tokens: [B, S] ints. Returns [B, n_out] int32."""
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+        logits, cache = self.prefill(self.params, {"tokens": toks})
+        pos = toks.shape[1]
+        tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+        outs = []
+        for i in range(n_out):
+            outs.append(tok)
+            logits, cache = self.decode(self.params, tok, pos + i, cache)
+            tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
+        return torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=64)
+    ap.add_argument("--out-tokens", type=int, default=32)
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--report-power", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.model_par != 1:
+        raise NotImplementedError("--model-par > 1: tensor parallelism waits "
+                                  "for ROADMAP Queue 1 item 8")
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    max_len = args.prompt + args.out_tokens
+    eng = ServeEngine(cfg, max_len, args.requests, device=args.device)
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = eng.generate(tokens, args.out_tokens)
+    dt = time.perf_counter() - t0
+    print(f"served batch={args.requests} prompt={args.prompt} out={args.out_tokens} "
+          f"on {eng.device} in {dt:.2f}s ({dt / args.out_tokens * 1e3:.1f} ms/token step)")
+    print("sample output tokens:", out[0, :16])
+
+    if args.report_power:
+        # Figure-4-style phase profile from the shared workload/power model
+        server = ServerPower(A100)
+        full = get_config(args.arch)
+        t = request_timing(full, args.prompt, args.requests, server)
+        print(f"[power, modelled A100 server] {full.name}: prompt phase "
+              f"{t.t_prefill:.3f}s @ {t.prefill_point.power_at(server, 1.0):.0f}W "
+              f"(compute-bound u_c={t.prefill_point.u_compute:.2f}) | token phase "
+              f"{t.t_token * 1e3:.1f}ms/tok @ {t.token_point.power_at(server, 1.0):.0f}W "
+              f"(memory-bound u_m={t.token_point.u_memory:.2f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,15 @@
 """Model/architecture configuration (PyTorch port of ``repro.models.config``).
 
-Every architecture is an instance of ``ModelConfig``. In this slice of the
-port only the power plane reads it: ``parallel.analytic.step_cost`` turns a
-config into the FLOPs/bytes behind ``core.workload``'s phase timings. The
-dtype fields are ``torch.dtype`` values.
+Every architecture is an instance of ``ModelConfig``. Two parts of the port
+read it: the power plane (``parallel.analytic.step_cost`` turns a config into
+the FLOPs/bytes behind ``core.workload``'s phase timings) and the serving
+stack (``models.model`` builds parameters, caches and the forward passes
+from it). The dtype fields are ``torch.dtype`` values.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -114,6 +116,13 @@ class ModelConfig:
     # enable for MHA archs (KV==H) — the kv grouping would shift.
     pad_heads_multiple: int = 0
 
+    @property
+    def padded_heads(self) -> int:
+        if not self.pad_heads_multiple:
+            return self.num_heads
+        m = self.pad_heads_multiple
+        return -(-self.num_heads // m) * m
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -136,6 +145,17 @@ class ModelConfig:
     @property
     def is_encoder_only(self) -> bool:
         return self.family == "encoder"
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return self.dtype
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.param_dtype
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
     # --- analytic parameter counts (for roofline MODEL_FLOPS) -----------------
     def param_counts(self) -> dict:

@@ -1,0 +1,218 @@
+"""The model: parameter specs, prefill and decode (PyTorch port of
+``repro.models.model``), for dense global-attention decoders.
+
+Plain functions over a parameter dict, as in the JAX package. The tree has
+the JAX layout, with each block's parameters stacked over ``num_groups`` on
+a leading layer axis; the forward passes walk that axis in a Python loop
+where the JAX package scans it. The KV cache is stacked the same way,
+``{"b<i>": {"k": [L, B, T, KV, hd], "v": ...}}``, and decode updates it in
+place.
+
+This slice serves configs whose pattern is global self attention (ATTN)
+with a dense MLP. Mamba, sliding-window (LOCAL) layers, MoE, encoders and
+modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
+from repro_torch.models.param import ParamSpec, tree_map_specs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not serve."""
+    missing = []
+    if any(kind != ATTN for kind in cfg.pattern):
+        missing.append(f"block kinds {sorted(set(cfg.pattern) - {ATTN})}")
+    if cfg.moe_num_experts:
+        missing.append("MoE")
+    if cfg.is_encoder_decoder or cfg.is_encoder_only:
+        missing.append("encoders")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} {attn_mod.NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    p: Dict[str, Any] = {"ln_attn": rmsnorm_spec(D), "attn": attn_mod.attn_specs(cfg)}
+    if cfg.use_post_norm:
+        p["post_ln_attn"] = rmsnorm_spec(D)
+    p["ln_mlp"] = rmsnorm_spec(D)
+    p["mlp"] = mlp_specs(cfg)
+    if cfg.use_post_norm:
+        p["post_ln_mlp"] = rmsnorm_spec(D)
+    return p
+
+
+def _stack_specs(tree, n: int):
+    return tree_map_specs(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.logical, s.init,
+                            s.scale, s.dtype), tree)
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    """Full abstract parameter tree."""
+    check_supported(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    wd = cfg.weight_dtype
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((V, D), ("vocab", "embed"), scale=1.0, dtype=wd),
+        "final_norm": rmsnorm_spec(D),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)
+    group = {f"b{i}": block_specs(cfg) for i in range(len(cfg.pattern))}
+    specs["decoder"] = _stack_specs(group, cfg.num_groups)
+    return specs
+
+
+# rmsnorm scales: the model reads them in float32 (every other weight is cast
+# to the activation dtype where it is used)
+NORM_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_mlp", "post_ln_mlp",
+                       "final_norm", "q_norm", "k_norm"})
+
+
+def cast_weights(cfg: ModelConfig, params, name: str = "") -> Any:
+    """``params`` with every weight except the norm scales stored in the
+    activation dtype. The model casts each such weight to that dtype where
+    it uses it, as the JAX model does, so a tree cast once computes the
+    same numbers and saves a cast of every weight on every step."""
+    if isinstance(params, dict):
+        return {k: cast_weights(cfg, v, k) for k, v in params.items()}
+    return params if name in NORM_KEYS else params.to(cfg.activation_dtype)
+
+
+def load_jax_params(cfg: ModelConfig, tree, device="cpu") -> dict:
+    """The port's parameters from the JAX package's parameter pytree, given
+    as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``;
+    layer axis stacked over ``num_groups``): the same tree and values, as
+    torch tensors of each spec's dtype on ``device``."""
+    def load(spec, x, path):
+        if isinstance(spec, ParamSpec):
+            x = np.asarray(x)
+            if tuple(x.shape) != spec.shape:
+                raise ValueError(f"{path}: shape {x.shape}, want {spec.shape}")
+            return torch.tensor(np.asarray(x, dtype=np.float32), device=device,
+                                dtype=spec.dtype)
+        if not isinstance(x, dict) or set(x) != set(spec):
+            got = sorted(x) if isinstance(x, dict) else type(x).__name__
+            raise ValueError(f"{path or 'params'}: keys {got}, want {sorted(spec)}")
+        return {k: load(spec[k], x[k], f"{path}/{k}") for k in spec}
+
+    return load(model_specs(cfg), tree, "")
+
+
+def _layer(tree, l: int):
+    """Layer ``l`` of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _ffn_apply(cfg, bp, h):
+    y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
+    out = mlp(cfg, bp["mlp"], y)
+    if cfg.use_post_norm:
+        out = rmsnorm(out, bp["post_ln_mlp"], cfg.norm_eps)
+    return h + out
+
+
+def _embed_inputs(cfg, params, batch):
+    """Token embedding: [B, S] int tokens -> [B, S, D] activations."""
+    return params["embed"][batch["tokens"].long()].to(cfg.activation_dtype)
+
+
+def _logits(cfg, params, h):
+    """float32 logits of [B, S, D] activations (the JAX einsum's float32
+    accumulation of activation-dtype operands)."""
+    act = cfg.activation_dtype
+    w = params["embed"].to(act).T if cfg.tie_embeddings else params["unembed"].to(act)
+    logits = torch.matmul(h.float(), w.float())
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits
+
+
+# KV caches are padded to a multiple of CACHE_PAD, as in the JAX package
+# (there so the sequence dim divides the mesh axes; kept so the caches, and
+# the decode kernel's inputs, have the reference's shapes).
+CACHE_PAD = 512
+
+
+def cache_len(T: int) -> int:
+    return -(-T // CACHE_PAD) * CACHE_PAD
+
+
+def cache_specs(cfg: ModelConfig, B: int, T: int) -> dict:
+    """Abstract KV cache for B sequences of up to T tokens."""
+    check_supported(cfg)
+    KV, hd, act = cfg.num_kv_heads, cfg.head_dim, cfg.activation_dtype
+    e = {name: ParamSpec((B, cache_len(T), KV, hd), ("batch", "kv_seq", None, None),
+                         "zeros", dtype=act) for name in ("k", "v")}
+    return _stack_specs({f"b{i}": e for i in range(len(cfg.pattern))}, cfg.num_groups)
+
+
+def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
+    """Process the prompt ``batch["tokens"]`` [B, S]; return (last-position
+    float32 logits [B, 1, V], cache with ``max_len`` slots)."""
+    check_supported(cfg)
+    h = _embed_inputs(cfg, params, batch)
+    B, S = h.shape[0], h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    shape = (cfg.num_groups, B, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cache = {f"b{i}": {name: torch.zeros(shape, dtype=h.dtype, device=h.device)
+                       for name in ("k", "v")} for i in range(len(cfg.pattern))}
+    for l in range(cfg.num_groups):
+        gp = _layer(params["decoder"], l)
+        for i in range(len(cfg.pattern)):
+            bp = gp[f"b{i}"]
+            a, (k, v) = attn_mod.self_attention(
+                cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
+                positions=positions, causal=True, return_kv=True)
+            if cfg.use_post_norm:
+                a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
+            h = h + a
+            cache[f"b{i}"]["k"][l, :, :S] = k
+            cache[f"b{i}"]["v"][l, :, :S] = v
+            h = _ffn_apply(cfg, bp, h)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, h[:, -1:, :]), cache
+
+
+def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
+    """One decode step. token: [B, 1] int; ``pos`` a host int (the new
+    token's position); the cache is updated in place and returned.
+    Returns (float32 logits [B, 1, V], cache)."""
+    check_supported(cfg)
+    h = params["embed"][token.long()].to(cfg.activation_dtype)
+    for l in range(cfg.num_groups):
+        gp = _layer(params["decoder"], l)
+        for i in range(len(cfg.pattern)):
+            bp, bc = gp[f"b{i}"], cache[f"b{i}"]
+            y, _, _ = attn_mod.decode_self_attention(
+                cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
+                bc["k"][l], bc["v"][l], pos)
+            if cfg.use_post_norm:
+                y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
+            h = h + y
+            h = _ffn_apply(cfg, bp, h)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, h), cache

@@ -47,6 +47,7 @@ from repro_torch.core.policy import PolcaPolicy, PredictivePolcaPolicy
 from repro_torch.core.simulator import SimResult
 from repro_torch.core.slo import LatencyStats
 from repro_torch.core.traces import TABLE4, get_occupancy_generator
+from repro_torch.device import resolve_device
 from repro_torch.experiments.runner import build_workloads, row_budgets
 from repro_torch.experiments.scenario import Scenario
 from repro_torch.kernels import ops as kops
@@ -371,21 +372,6 @@ def _interp_weights(model: TickModel) -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 # the engine on the device
 # ---------------------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the CUDA card unless the caller
-    passes ``device="cpu"``. Raises when CUDA is asked for (explicitly or by
-    default) and absent — the port never falls back to the CPU silently."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the tick engine runs on 'cuda' or 'cpu', got {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the tick engine runs on the CUDA card by default and no CUDA "
-            "device is available; pass device='cpu' to run the kernel's "
-            "plain PyTorch version on the CPU")
-    return dev
-
 
 def effective_occupancy(model: TickModel, device) -> torch.Tensor:
     """[N, T, R] per-tick occupancy on ``device``: the 60 s grid

@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.slo import DEFAULT_SLO, SLO
+from repro_torch.device import resolve_device
 from repro_torch.experiments.scenario import Scenario
 from repro_torch.provisioning.montecarlo import (
     EnsembleResult,
@@ -130,8 +131,6 @@ def plan_capacity(base: Scenario, *,
     ensemble backend per :func:`~repro_torch.provisioning.montecarlo.
     run_ensemble`; ``engine_opts`` forward there.
     """
-    from repro_torch.provisioning.batched import resolve_device
-
     if constraints.survive is not None:
         raise ValueError(
             "RiskConstraints.survive needs the event-driven routed-fleet "

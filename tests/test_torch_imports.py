@@ -5,10 +5,10 @@
   functions count too).
 * Entry points run on the CUDA card unless the caller passes
   ``device="cpu"``: without CUDA they raise instead of falling back.
-* ``ops.polca_tick`` takes the plain version for CPU tensors without
-  touching the kernel's launch counter; the kernel wrapper refuses CPU
-  tensors.
-* ``chip_smoke.py`` holds the kernel against its plain version on the
+* ``ops.polca_tick``, ``ops.flash_attention`` and ``ops.decode_attention``
+  take the plain version for CPU tensors without touching the kernels'
+  launch counters; the kernel wrappers refuse CPU tensors.
+* ``chip_smoke.py`` holds the kernels against their plain versions on the
   kernel test shapes of ``tests/test_kernels.py``.
 """
 
@@ -19,10 +19,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from test_kernels import TICK_CASES, TICK_CONSTS
+import numpy as np
+
+from test_kernels import DECODE_CASES, FLASH_CASES, TICK_CASES, TICK_CONSTS
 
 from repro_torch.experiments.scenario import FleetSpec, Scenario, TrafficSpec
-from repro_torch.kernels import ops, tick
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import decode_attention, flash_attention, ops, tick
+from repro_torch.launch import serve
 from repro_torch.provisioning import EnsembleSpec, plan_capacity, run_ensemble
 
 REPO = Path(__file__).resolve().parents[1]
@@ -63,6 +67,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         plan_capacity(_small_spec().base)
     res = run_ensemble(_small_spec(), device="cpu")
     assert res.n_members == 2
+    cfg = smoke_config("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.ServeEngine(cfg, 32, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama3.2-1b", "--smoke"])
+    assert serve.ServeEngine(cfg, 32, 2, device="cpu").device.type == "cpu"
+    serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                "--requests", "2", "--prompt", "8", "--out-tokens", "2",
+                "--report-power"])
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                    "--model-par", "2"])
 
 
 def test_unknown_engine_raises():
@@ -87,6 +103,39 @@ def test_cpu_tensors_take_plain_version_without_launching():
     assert tick.polca_tick_loop.launches == 0
 
 
+def test_cpu_attention_takes_plain_versions_without_launching():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 40, 4, 16), generator=g, dtype=torch.bfloat16)
+    k = torch.randn((2, 40, 2, 16), generator=g, dtype=torch.bfloat16)
+    v = torch.randn((2, 40, 2, 16), generator=g, dtype=torch.bfloat16)
+    flash_attention.flash_attention.launches = 0
+    decode_attention.decode_attention.launches = 0
+    got = ops.flash_attention(q, k, v, causal=True, window=8, q_offset=3)
+    assert torch.equal(got, flash_attention.flash_attention_plain(
+        q, k, v, causal=True, window=8, q_offset=3))
+    got = ops.decode_attention(q[:, 0], k, v, 17, softcap=20.0)
+    assert torch.equal(got, decode_attention.decode_attention_plain(
+        q[:, 0], k, v, 17, softcap=20.0))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_attention.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        decode_attention.decode_attention(q[:, 0], k, v, 17)
+    assert flash_attention.flash_attention.launches == 0
+    assert decode_attention.decode_attention.launches == 0
+
+
+def test_decode_split_covers_the_valid_slots():
+    """Splits are whole 64-slot tiles, cover [0, valid_len) and give at least
+    two blocks per SM when the valid slots are enough for that."""
+    for bkv, vl in ((64, 1100), (1, 1024), (24, 17), (64, 32768), (4, 1), (8, 0)):
+        sl = decode_attention.split_len(bkv, vl, 132)
+        n = max(1, -(-vl // sl))
+        assert sl % decode_attention.SPLIT_GRAIN == 0 and n * sl >= vl
+        assert (n - 1) * sl < max(vl, 1)  # no split starts at or past valid_len
+        assert n * bkv >= min(2 * 132, -(-max(vl, 1) // 64) * bkv)
+    assert decode_attention.split_len(64, 1100, 132) == 256
+
+
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     """Without nvcc the build raises with a message naming it (and writes
     nothing); it never substitutes another implementation."""
@@ -96,7 +145,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_LOADED", {})
-    assert _build.sources() == ["tick"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "tick"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("tick")
     assert not (tmp_path / "kernels").exists()
@@ -109,3 +158,7 @@ def test_chip_smoke_checks_the_kernel_test_shapes():
     spec.loader.exec_module(smoke)
     assert smoke.TICK_CASES == TICK_CASES
     assert smoke.TICK_CONSTS == TICK_CONSTS
+    by_name = lambda cases, i: [(*c[:i], np.dtype(c[i]).name, *c[i + 1:])
+                                for c in cases]
+    assert smoke.FLASH_CASES == by_name(FLASH_CASES, 6)
+    assert smoke.DECODE_CASES == DECODE_CASES

@@ -1,0 +1,226 @@
+"""The port's serving path against the JAX model, on the CPU.
+
+For the smoke configs of llama3.2-1b, qwen3-8b (qk-norm) and yi-34b
+(padded query heads), one parameter tree from JAX's ``init_params`` goes to
+both sides as numpy arrays (``load_jax_params`` on the port's side); leaves
+that JAX initialises to zero (yi's padded ``wo``) get small numpy normals
+so that every path computes something. The JAX model runs on the Auto-axis
+reference mesh (ROADMAP "Open items"); the port on the CPU runs its
+kernels' plain versions.
+
+* float32: prefill logits and every cache leaf within 1e-4 relative, one
+  decode step's logits and updated cache too, and ``ServeEngine.generate``
+  gives JAX's ``ServeEngine``'s greedy tokens over 8 steps;
+* bfloat16 (the configs' default): prefill logits within the 0.06 relative
+  bound of ``tests/test_system.py``, and prefill->decode consistency below
+  0.06;
+* ``load_jax_params`` copies every leaf exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AxisType
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.launch.inputs import make_rules
+from repro.launch.mesh import set_mesh
+from repro.launch.serve import ServeEngine as JaxServeEngine
+from repro.launch.steps import build_decode_step as jax_decode_step
+from repro.launch.steps import build_prefill_step as jax_prefill_step
+from repro.models import model as jax_model
+from repro.models.config import ShapeConfig as JaxShapeConfig
+from repro.models.param import init_params as jax_init_params
+from repro_torch.configs import smoke_config
+from repro_torch.launch.serve import ServeEngine
+from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.models import model
+from repro_torch.models.config import ShapeConfig
+
+ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b"]
+B, S = 2, 24
+F32_RTOL = 1e-4
+BF16_RTOL = 0.06  # tests/test_system.py's bound
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+
+
+def _configs(arch, dtype):
+    """(JAX config, port config) of the smoke model in ``dtype``."""
+    jcfg = jax_smoke_config(arch).replace(dtype=dtype)
+    return jcfg, smoke_config(arch).replace(dtype=getattr(torch, dtype))
+
+
+def _shared_params(jcfg, seed=0):
+    """JAX-initialised parameters as a numpy tree, zero leaves filled."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree.map(np.asarray, jax_init_params(jax_model.model_specs(jcfg, 1),
+                                                    jax.random.key(seed)))
+
+    def fill(x):
+        if not x.any():
+            return (0.05 * rng.standard_normal(x.shape)).astype(x.dtype)
+        return x
+
+    return jax.tree.map(fill, tree)
+
+
+def _rel(a, b):
+    a, b = np.float32(a), np.float32(b)
+    return float(np.abs(a - b).max() / (np.abs(a).max() + 1e-6))
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def _run_both(arch, dtype, mesh, tokens):
+    """Prefill of ``tokens`` and one decode step of the next token on both
+    sides. Returns ((jax logits, cache, dec logits, dec cache), (port ...))."""
+    jcfg, cfg = _configs(arch, dtype)
+    np_params = _shared_params(jcfg)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    params = model.load_jax_params(cfg, np_params, "cpu")
+    shape = JaxShapeConfig("t", S, B, "prefill")
+    rules = make_rules(jcfg, shape, mesh)
+    jpf = jax.jit(jax_prefill_step(jcfg, shape, mesh, rules))
+    jdc = jax.jit(jax_decode_step(jcfg, mesh, rules))
+    nxt = tokens[:, -1:]
+    with set_mesh(mesh):
+        jl, jc = jpf(jparams, {"tokens": jnp.asarray(tokens[:, :-1])})
+        jl, jc = jax.tree.map(np.asarray, (jl, jc))
+        jdl, jdc_ = jdc(jparams, jnp.asarray(nxt), jnp.asarray(S - 1, jnp.int32),
+                        jax.tree.map(jnp.asarray, jc))
+        jdl, jdc_ = jax.tree.map(np.asarray, (jdl, jdc_))
+    pf = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))
+    dc = build_decode_step(cfg)
+    pl, pc = pf(params, {"tokens": torch.as_tensor(tokens[:, :-1])})
+    pc_prefill = jax.tree.map(lambda t: t.clone(), pc)
+    pdl, pdc = dc(params, torch.as_tensor(nxt), S - 1, pc)
+    return (jl, jc, jdl, jdc_), (pl, pc_prefill, pdl, pdc)
+
+
+def _tokens(cfg, seed=3):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_prefill_and_decode_match_jax(arch, mesh):
+    jcfg, _ = _configs(arch, "float32")
+    (jl, jc, jdl, jdc), (pl, pc, pdl, pdc) = _run_both(arch, "float32", mesh, _tokens(jcfg))
+    assert pl.shape == jl.shape == (B, 1, jcfg.vocab_size) and pl.dtype == torch.float32
+    assert _rel(jl, _np(pl)) < F32_RTOL
+    assert _rel(jdl, _np(pdl)) < F32_RTOL
+    for (jpath, j), (ppath, p) in zip(_leaves(jc), _leaves(pc), strict=True):
+        assert jpath == ppath and j.shape == tuple(p.shape)
+        assert _rel(j, _np(p)) < F32_RTOL, jpath
+    for (jpath, j), (ppath, p) in zip(_leaves(jdc), _leaves(pdc), strict=True):
+        assert jpath == ppath
+        assert _rel(j, _np(p)) < F32_RTOL, jpath
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bfloat16_logits_and_prefill_decode_consistency(arch, mesh):
+    jcfg, cfg = _configs(arch, "bfloat16")
+    tokens = _tokens(jcfg, seed=4)
+    (jl, _, jdl, _), (pl, _, pdl, _) = _run_both(arch, "bfloat16", mesh, tokens)
+    assert _rel(jl, _np(pl)) < BF16_RTOL
+    assert _rel(jdl, _np(pdl)) < BF16_RTOL
+    # the port alone: full prefill against prefill of all but the last token
+    # plus one decode step of it
+    params = model.load_jax_params(cfg, _shared_params(jcfg), "cpu")
+    full, _ = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
+        params, {"tokens": torch.as_tensor(tokens)})
+    assert np.isfinite(_np(full)).all() and np.isfinite(_np(pdl)).all()
+    assert _rel(_np(full[:, -1]), _np(pdl[:, -1])) < BF16_RTOL
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_float32_generate_matches_jax_serve_engine(arch, mesh):
+    jcfg, cfg = _configs(arch, "float32")
+    np_params = _shared_params(jcfg)
+    jeng = JaxServeEngine(jcfg, mesh, max_len=S + 8, batch=B)
+    jeng.params = jax.tree.map(jnp.asarray, np_params)
+    eng = ServeEngine(cfg, S + 8, B, device="cpu")
+    eng.params = model.load_jax_params(cfg, np_params, "cpu")
+    tokens = _tokens(jcfg, seed=5)[:, :16]
+    want = jeng.generate(tokens, 8)
+    got = eng.generate(tokens, 8)
+    assert got.shape == (B, 8) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.generate(tokens, 8), got)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_load_jax_params_copies_every_leaf(arch):
+    jcfg, cfg = _configs(arch, "bfloat16")
+    np_params = _shared_params(jcfg)
+    params = model.load_jax_params(cfg, np_params, "cpu")
+    got, want = list(_leaves(params)), list(_leaves(np_params))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, p), (_, x) in zip(got, want):
+        assert p.dtype == torch.float32 and tuple(p.shape) == x.shape, path
+        assert np.array_equal(p.numpy(), x), path
+    bad = dict(np_params, embed=np_params["embed"][:, :-1])
+    with pytest.raises(ValueError, match="embed"):
+        model.load_jax_params(cfg, bad)
+    with pytest.raises(ValueError, match="keys"):
+        model.load_jax_params(cfg, {k: v for k, v in np_params.items() if k != "embed"})
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_and_cache_specs_match_jax(arch):
+    """The port's parameter tree and cache layout are JAX's, leaf for leaf;
+    a seeded init is deterministic and puts each rule where JAX does."""
+    jcfg, cfg = _configs(arch, "bfloat16")
+    jspecs = jax_model.model_specs(jcfg, 1)
+    specs = model.model_specs(cfg)
+    is_spec = lambda x: hasattr(x, "logical")
+    jl = jax.tree_util.tree_leaves_with_path(jspecs, is_leaf=is_spec)
+    pl = list(_leaves(specs))
+    assert len(jl) == len(pl)
+    for (jpath, js), (ppath, ps) in zip(jl, pl):
+        assert "/" + "/".join(k.key for k in jpath) == ppath
+        assert (js.shape, js.logical, js.init) == (ps.shape, ps.logical, ps.init), ppath
+    jcache = jax_model.cache_specs(jcfg, B, S)
+    pcache = model.cache_specs(cfg, B, S)
+    assert [s.shape for s in jax.tree.leaves(jcache, is_leaf=is_spec)] == \
+        [s.shape for _, s in _leaves(pcache)]
+    _, cache = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
+        model.load_jax_params(cfg, _shared_params(jcfg)),
+        {"tokens": torch.as_tensor(_tokens(jcfg))})
+    assert [tuple(t.shape) for _, t in _leaves(cache)] == \
+        [s.shape for _, s in _leaves(pcache)]
+    a = ServeEngine(cfg, S, B, device="cpu", seed=7).params
+    b = ServeEngine(cfg, S, B, device="cpu", seed=7).params
+    for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        assert torch.equal(x, y), path
+    wo = a["decoder"]["b0"]["attn"]["wo"]
+    assert bool((wo == 0).all()) == (cfg.padded_heads != cfg.num_heads)
+    assert a["final_norm"].dtype == torch.float32  # norm scales stay float32
+    assert a["embed"].dtype == cfg.activation_dtype
+
+
+def test_unsupported_configs_raise():
+    from repro_torch.models.config import LOCAL, MAMBA
+
+    base = smoke_config("llama3.2-1b")
+    for cfg in (base.replace(pattern=(LOCAL,)), base.replace(pattern=(MAMBA,)),
+                base.replace(moe_num_experts=4, moe_top_k=2),
+                base.replace(num_encoder_layers=2),
+                base.replace(frontend="vision_stub")):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+            model.model_specs(cfg)
