@@ -18,8 +18,10 @@ each launched its kernels:
   and a card-vs-CPU check of the same engine on the smoke config.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
-and last ``{"ok": true, "device": {...}}``. Any failed phase raises and
-exits non-zero; without a CUDA device it exits non-zero before printing any
+and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
+times: calls captured in a CUDA graph and replayed between CUDA events;
+``call_ms`` is a Python loop of calls, host included. Any failed phase
+raises and exits non-zero; without a CUDA device it exits non-zero before printing any
 result.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -138,7 +140,8 @@ def planner_scenario():
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` runs (CUDA
-    events around the runs, after a synchronize)."""
+    events around the runs, after a synchronize). For a call of tens of
+    microseconds this is what a Python caller pays per call, host included."""
     import torch
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -149,6 +152,61 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fns, calls: int, replays: int = 5) -> float:
+    """Mean device milliseconds of one call: ``calls`` calls, cycling through
+    the callables ``fns``, captured in one CUDA graph after a warm-up call of
+    each, and the graph replayed ``replays`` times between CUDA events. One
+    replay is one host call, so the time is the device's. Cycling through
+    inputs whose total exceeds the 50 MB L2 makes each call find its data in
+    device memory, as a layer of the served model does."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def ptxas_report(name: str) -> list:
+    """One line per kernel instance of ``csrc/<name>.cu`` from its build log:
+    registers and spill bytes, as ``nvcc -Xptxas -v`` reported them."""
+    import shutil
+    from repro_torch.kernels import _build
+    rows, fn, spill = [], None, ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            rows.append((fn, regs, spill))
+            fn = None
+    names = [r[0] for r in rows]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    return [f"ptxas {name}: {n.replace('(anonymous namespace)::', '')}: {regs}; {spill}"
+            for n, (_, regs, spill) in zip(names, rows)]
 
 
 def compare_tick(got, want, label: str) -> float:
@@ -178,6 +236,9 @@ def reset_counts() -> None:
     tick.polca_tick_loop.launches = 0
     flash_attention.flash_attention.launches = 0
     decode_attention.decode_attention.launches = 0
+    for fn in (flash_attention.flash_attention, decode_attention.decode_attention):
+        for variant in fn.launches_by_variant:
+            fn.launches_by_variant[variant] = 0
 
 
 def counts() -> dict:
@@ -213,7 +274,9 @@ def randn(rng, shape, dtype: str, dev):
 
 def check_attention_cases(dev) -> None:
     """Both attention kernels against their plain versions on the card, at
-    the test shapes of tests/test_kernels.py and the ragged shapes."""
+    the test shapes of tests/test_kernels.py and the ragged shapes; the
+    decode shapes in bf16 and in float32 (every instance of the CUDA-core
+    decode kernel's float32 path: G = 1, 2, 4, 8 and hd 64, 128, 256)."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dec
@@ -233,16 +296,17 @@ def check_attention_cases(dev) -> None:
         print(f"kernel flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
               f"hd={hd} {dt} causal={causal} window={window} softcap={cap} "
               f"q_offset={q_off}: max abs gap {gap:.3e}")
-    for i, (B, T, H, KV, hd, vl, cap, _) in enumerate(DECODE_CASES):
+    decode = [(*c[:7], dt) for dt in ("bfloat16", "float32") for c in DECODE_CASES]
+    for i, (B, T, H, KV, hd, vl, cap, dt) in enumerate(decode):
         rng = np.random.default_rng(200 + i)
-        q = randn(rng, (B, H, hd), "bfloat16", dev)
-        k = randn(rng, (B, T, KV, hd), "bfloat16", dev)
-        v = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+        q = randn(rng, (B, H, hd), dt, dev)
+        k = randn(rng, (B, T, KV, hd), dt, dev)
+        v = randn(rng, (B, T, KV, hd), dt, dev)
         got = dec.decode_attention(q, k, v, vl, softcap=cap)
         want = dec.decode_attention_plain(q, k, v, vl, softcap=cap)
         torch.cuda.synchronize()
-        gap = compare_close(got, want, ATTN_TOL["bfloat16"], f"decode case {i}")
-        print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} "
+        gap = compare_close(got, want, ATTN_TOL[dt], f"decode case {i}")
+        print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} {dt} "
               f"valid_len={vl} softcap={cap}: max abs gap {gap:.3e}")
 
 
@@ -258,6 +322,8 @@ def serve_main_path(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import ServeEngine
 
     cfg = get_config(SERVE_ARCH)
@@ -287,6 +353,12 @@ def serve_main_path(dev) -> dict:
             "decode_attention": cfg.num_layers * SERVE_OUT}
     if launches != want:
         raise AssertionError(f"generate launched {launches}, want {want}")
+    by_variant = {"flash": dict(fa.flash_attention.launches_by_variant),
+                  "decode": dict(dec.decode_attention.launches_by_variant)}
+    if by_variant != {"flash": {"tensor_core": want["flash_attention"], "cuda_core": 0},
+                      "decode": {"tensor_core": want["decode_attention"], "cuda_core": 0}}:
+        raise AssertionError(f"generate launched the kernel variants {by_variant}, "
+                             f"want all on the tensor cores")
     t0 = time.perf_counter()
     out2 = eng.generate(tokens, SERVE_OUT)
     gen2_s = time.perf_counter() - t0
@@ -303,7 +375,8 @@ def serve_main_path(dev) -> dict:
           f"run {gen2_s:.3f} s), decode {decode_ms:.3f} ms/token step "
           f"(derived: (generate - prefill) / {SERVE_OUT}), "
           f"{SERVE_REQUESTS * SERVE_OUT / gen_s:.1f} output tokens/s; "
-          f"launches {launches}; greedy tokens identical over two runs; "
+          f"launches {launches} (by variant {by_variant}); greedy tokens "
+          f"identical over two runs; "
           f"sample {out1[0, :8].tolist()}")
     del eng, logits_full
     torch.cuda.empty_cache()
@@ -405,90 +478,114 @@ def serve_card_vs_cpu(dev) -> None:
           f"{rel:.3e}, 8 greedy tokens identical")
 
 
-def time_attention(dev, rng_seed: int = 7) -> list:
-    """Each attention kernel at the serving main-path shapes: its time, its
-    plain version's, scaled_dot_product_attention's (a yardstick the port
-    never calls) and its bound."""
-    import numpy as np
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """(least milliseconds, what bounds it): the larger of bf16 operations
+    at the tensor-core peak and bytes at the HBM rate."""
+    ops_ms = flops / H100_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int) -> dict:
+    """The flash kernel at one bf16 causal prefill shape: device time, call
+    time, its plain version's and scaled_dot_product_attention's device
+    times (a yardstick the port never calls), the bound and the error."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.model import cache_len
 
-    cfg = get_config(SERVE_ARCH)
-    B, S, H, KV, hd = (SERVE_REQUESTS, SERVE_PROMPT, cfg.num_heads,
-                       cfg.num_kv_heads, cfg.head_dim)
-    rng = np.random.default_rng(rng_seed)
     q = randn(rng, (B, S, H, hd), "bfloat16", dev)
     k = randn(rng, (B, S, KV, hd), "bfloat16", dev)
     v = randn(rng, (B, S, KV, hd), "bfloat16", dev)
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
-    flash_err = compare_close(got, want, ATTN_TOL["bfloat16"], "flash main-path shape")
+    err = compare_close(got, want, ATTN_TOL["bfloat16"], f"flash B={B} S={S} hd={hd}")
     del got, want
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    fa.flash_attention(q, k, v, causal=True)
-    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    flash_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps=20)
-    flash_plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3)
-    flash_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-    flash_flops = 4 * B * H * hd * S * (S + 1) / 2
-    flash_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v in bf16
-    f_ops_ms = flash_flops / H100_BF16_FLOPS * 1e3
-    f_bytes_ms = flash_bytes / H100_BYTES_PER_S * 1e3
-    flash_bound = max(f_ops_ms, f_bytes_ms)
-    print(f"kernel flash_attention at the main-path shape B={B} S={S} H={H} "
-          f"KV={KV} hd={hd} bf16 causal: {flash_ms:.4f} ms (plain version "
-          f"{flash_plain_ms:.4f} ms, scaled_dot_product_attention "
-          f"{flash_lib_ms:.4f} ms; bound {flash_bound:.4f} ms by "
-          f"{'operations' if f_ops_ms >= f_bytes_ms else 'bytes'}: "
-          f"{flash_flops / 1e9:.2f} GFLOP, {flash_bytes / 1e6:.1f} MB); "
-          f"max abs gap {flash_err:.3e}")
-    del q, k, v, qt, kt, vt
+    kernel = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    row = dict(
+        ms=device_ms([kernel], calls=20),
+        call_ms=cuda_ms(kernel, reps=20),
+        plain_ms=device_ms([lambda: fa.flash_attention_plain(q, k, v, causal=True)],
+                           calls=3, replays=2),
+        library_ms=device_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)], calls=20),
+        max_abs_err=err)
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v in bf16
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    print(f"kernel flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal: "
+          f"device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms (plain version "
+          f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{row['library_ms']:.4f} ms, device times; bound {row['bound_ms']:.4f} ms "
+          f"by {row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"max abs gap {err:.3e}")
+    return row
 
-    T, vl = cache_len(SERVE_PROMPT + SERVE_OUT), SERVE_VALID_LEN
-    q = randn(rng, (B, H, hd), "bfloat16", dev)
-    k = randn(rng, (B, T, KV, hd), "bfloat16", dev)
-    v = randn(rng, (B, T, KV, hd), "bfloat16", dev)
+
+DECODE_SETS = 4  # cache sets the decode timing cycles through: 100 MB > L2
+
+
+def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int) -> dict:
+    """The decode kernel at one bf16 shape, as :func:`time_flash`, the
+    timed calls cycling through :data:`DECODE_SETS` caches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+
+    sets = [tuple(randn(rng, s, "bfloat16", dev)
+                  for s in ((B, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+            for _ in range(DECODE_SETS)]
+    q, k, v = sets[0]
     got = dec.decode_attention(q, k, v, vl)
     want = dec.decode_attention_plain(q, k, v, vl)
     torch.cuda.synchronize()
-    dec_err = compare_close(got, want, ATTN_TOL["bfloat16"], "decode main-path shape")
+    err = compare_close(got, want, ATTN_TOL["bfloat16"], "decode main-path shape")
     mask = (torch.arange(T, device=dev) < vl)[None, None, None, :]
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    dec_ms = cuda_ms(lambda: dec.decode_attention(q, k, v, vl), reps=50)
-    dec_plain_ms = cuda_ms(lambda: dec.decode_attention_plain(q, k, v, vl), reps=10)
-    dec_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
-    dec_bytes = 2 * (2 * B * vl * KV * hd + 2 * B * H * hd)  # valid k, v; q, o
-    dec_flops = 4 * B * H * hd * vl
-    d_ops_ms = dec_flops / H100_BF16_FLOPS * 1e3
-    d_bytes_ms = dec_bytes / H100_BYTES_PER_S * 1e3
-    dec_bound = max(d_ops_ms, d_bytes_ms)
-    print(f"kernel decode_attention at the main-path shape B={B} T={T} H={H} "
-          f"KV={KV} hd={hd} valid_len={vl} bf16: {dec_ms:.4f} ms (plain "
-          f"version {dec_plain_ms:.4f} ms, scaled_dot_product_attention "
-          f"{dec_lib_ms:.4f} ms; bound {dec_bound:.5f} ms by "
-          f"{'operations' if d_ops_ms >= d_bytes_ms else 'bytes'}: "
-          f"{dec_bytes / 1e6:.2f} MB, {dec_flops / 1e9:.3f} GFLOP); max abs "
-          f"gap {dec_err:.3e}; split length {dec.split_len(B * KV, vl, dec._sm_count(dev.index))}")
-    return [
-        dict(name="flash_attention", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:32", max_abs_err=flash_err,
-             ms=flash_ms, plain_ms=flash_plain_ms, bound_ms=flash_bound,
-             bound_by="operations" if f_ops_ms >= f_bytes_ms else "bytes",
-             library_ms=flash_lib_ms),
-        dict(name="decode_attention", source="src/repro_torch/kernels/csrc/decode_attention.cu",
-             replaces="src/repro/kernels/decode_attention.py:28", max_abs_err=dec_err,
-             ms=dec_ms, plain_ms=dec_plain_ms, bound_ms=dec_bound,
-             bound_by="operations" if d_ops_ms >= d_bytes_ms else "bytes",
-             library_ms=dec_lib_ms),
-    ]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+    row = dict(
+        ms=device_ms([lambda s=s: dec.decode_attention(*s, vl) for s in sets], calls=64),
+        call_ms=cuda_ms(lambda: dec.decode_attention(q, k, v, vl), reps=50),
+        plain_ms=device_ms([lambda s=s: dec.decode_attention_plain(*s, vl) for s in sets],
+                           calls=8),
+        library_ms=device_ms([lambda s=s: F.scaled_dot_product_attention(
+            *s, attn_mask=mask, enable_gqa=True) for s in lib_sets], calls=64),
+        max_abs_err=err)
+    nbytes = 2 * (2 * B * vl * KV * hd + 2 * B * H * hd)  # valid k, v; q, o
+    flops = 4 * B * H * hd * vl
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl} "
+          f"bf16: device {row['ms']:.5f} ms, call {row['call_ms']:.5f} ms (plain "
+          f"version {row['plain_ms']:.5f} ms, scaled_dot_product_attention "
+          f"{row['library_ms']:.5f} ms, device times over {DECODE_SETS} caches; bound "
+          f"{row['bound_ms']:.5f} ms by {row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); max abs gap {err:.3e}")
+    return row
+
+
+def time_attention(dev, rng_seed: int = 7) -> list:
+    """Both attention kernels at the serving main-path shapes (llama3.2-1b),
+    and the flash kernel also at the qwen3-8b / yi-34b head dim of 128."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import cache_len
+
+    cfg = get_config(SERVE_ARCH)
+    B, S, H, KV, hd = (SERVE_REQUESTS, SERVE_PROMPT, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    rng = np.random.default_rng(rng_seed)
+    flash = time_flash(dev, rng, B, S, H, KV, hd)
+    flash["hd128"] = time_flash(dev, rng, B, S, 32, 8, 128)
+    decode = time_decode(dev, rng, B, cache_len(SERVE_PROMPT + SERVE_OUT), H, KV, hd,
+                         SERVE_VALID_LEN)
+    flash.update(name="flash_attention",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:32")
+    decode.update(name="decode_attention",
+                  source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                  replaces="src/repro/kernels/decode_attention.py:28")
+    return [flash, decode]
 
 
 def main() -> int:
@@ -522,9 +619,8 @@ def main() -> int:
     _build.build(names)
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s")
     for name in names:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_report(name):
+            print(f"  {line}")
 
     # 3. each kernel against its plain version, on the card
     f64 = dict(dtype=torch.float64, device=dev)
@@ -674,8 +770,9 @@ def main() -> int:
         kernels.append({"name": row["name"], "route": "cuda", "source": row["source"],
                         "replaces": row["replaces"],
                         "launches": serve_launches[row["name"]],
-                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by", "library_ms")}})
+                        **{k: row[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms")},
+                        **({"hd128": row["hd128"]} if "hd128" in row else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

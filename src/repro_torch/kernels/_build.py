@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
-into ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository
-root, at first use. The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one loads the cached library. Nothing
+(with the shared headers ``csrc/*.cuh``) into
+``build/repro_torch_kernels/<name>-<hash>.so`` under the repository root, at
+first use. The hash covers the source, the headers and the flags, so an
+edited source rebuilds and an unchanged one loads the cached library. Nothing
 here runs at import: CPU-only installs import this module without a CUDA
 toolkit.
 """
@@ -21,12 +22,20 @@ from typing import Dict, Iterable, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
-# -fmad=false: the power expression must round like the plain version's
-# separate multiplies and adds. No --use_fast_math: the ring's NaN sentinels
-# need a real isnan(). -Xptxas -v records registers/spills in the build log.
+# -Xptxas -v records registers/spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source beyond NVCC_FLAGS. tick: -fmad=false, so that the power
+# expression rounds like the plain version's separate multiplies and adds
+# (bit-identical brake sets); no --use_fast_math anywhere (the tick ring's
+# NaN sentinels need a real isnan()).
+SOURCE_FLAGS = {"tick": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -45,8 +54,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, the shared headers ``csrc/*.cuh`` and the source's flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(src + "\0".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -56,7 +67,7 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     if out.exists():
         return None
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)

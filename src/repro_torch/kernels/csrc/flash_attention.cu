@@ -1,4 +1,4 @@
-// Flash attention for prefill: a hand-written CUDA kernel for Hopper (sm_90a).
+// Flash attention for prefill: hand-written CUDA kernels for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention.py::_flash_kernel, the Pallas
 // kernel behind repro.kernels.flash_attention.flash_attention and
@@ -16,26 +16,45 @@
 // such a row, never NaN.
 //
 // Bound: operations. At the serving shapes (S = 1024, hd = 64) a block reads
-// each KV tile once for all G * BQ query rows of its tile, and the causal
-// product is 4 * B * H * hd * S(S+1)/2 flops against ~2 * B * S * (H + KV) * hd
-// bytes: hundreds of flops per byte, far above the card's ridge point.
+// each KV tile once for all its query rows, and the causal product is
+// 4 * B * H * hd * S(S+1)/2 flops against ~2 * B * S * (H + KV) * hd bytes:
+// hundreds of flops per byte, far above the card's ridge point.
 //
-// Design: the TPU kernel carried m/l/acc in VMEM scratch across a sequential
-// KV grid axis. Hopper's blocks run in no order, so one block owns one
-// (batch, KV head, query tile) with all G query heads of that KV head folded
-// into its rows (the Pallas kernel's GQA fold: a KV tile is loaded once per G
-// query heads) and loops over the KV tiles itself, skipping tiles wholly in
-// the future (causal) or wholly before the window. Q, K and V tiles are read
-// through the strides of the native [B, S, heads, hd] layouts (no transposed
-// copy in device memory) and staged in shared memory as float32; the last
-// query tile and the last KV tile are masked, so any Sq and Skv work. Each
-// warp owns RPW rows: a lane computes the scores of two keys of a 64-key
-// tile, the row max and sum are warp shuffles, and a lane accumulates hd/32
-// output columns. The products run on the CUDA cores in float32 (fmaf);
-// tensor cores (wgmma) and TMA are later work.
+// The TPU kernel carried m/l/acc in VMEM scratch across a sequential KV grid
+// axis. Hopper's blocks run in no order, so a block owns a tile of query
+// rows and loops over the KV tiles itself, skipping tiles wholly in the
+// future (causal) or wholly before the window. Q, K and V are read through
+// the strides of the native [B, S, heads, hd] layouts (no transposed copy).
+// Two kernels, chosen by (dtype, hd) in the Python wrapper:
+//
+// * flash_tc_kernel (bf16, hd 64 or 128): the tensor-core kernel. A block
+//   owns (batch, query head, 128-query tile): two consumer warpgroups of 64
+//   rows and one producer warp. The producer issues TMA loads through 4-D
+//   tensor maps over the native layouts: Q once, then K and V tiles (128
+//   keys at hd 64, 64 at hd 128) into a 4-stage ring of mbarrier-guarded
+//   buffers, 128-byte swizzled, rows past Skv zero-filled. Each consumer
+//   warpgroup runs S = Q K^T as a chain of wgmma (Q and K K-major in shared
+//   memory), the online softmax on the float32 accumulator registers (row
+//   max and sum over the four lanes that share a row), rounds P to bf16 in
+//   registers and runs O += P V as wgmma with P as the register A operand
+//   and V read MN-major from the same swizzled tile through the
+//   descriptor's transpose. The two warpgroups take turns issuing their
+//   products (named barriers), S of tile i together with PV of tile i - 1,
+//   so that one warpgroup's softmax runs under the other's products and
+//   under its own PV product. The K/V re-reads of the G heads of one KV
+//   head hit L2.
+// * flash_kernel (float32, where TF32 would break the 2e-5 contract, and
+//   bf16 at the other head dims): the CUDA-core kernel. One block owns a
+//   (batch, KV head, query tile) with the G query heads of that KV head
+//   folded into its rows; tiles are staged in shared memory as float32 and
+//   both products run as fmaf, a lane computing two keys of a 64-key tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -265,24 +284,480 @@ int launch(FlashArgs a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 at hd 64 and 128 runs the tensor-core kernel, never this one
 template <typename T>
 int dispatch(FlashArgs a, int B, int hd, cudaStream_t stream) {
+  constexpr bool f32 = sizeof(T) == 4;
   switch (hd) {
     case 8: return launch<T, 8>(a, B, stream);
     case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
+    case 64:
+      if constexpr (f32) return launch<T, 64>(a, B, stream);
+      break;
+    case 128:
+      if constexpr (f32) return launch<T, 128>(a, B, stream);
+      break;
     case 256: return launch<T, 256>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream) of CUDA device `device`.
-// dtype 0 is float32, 1 is bfloat16 (q, k, v and o share it). Strides are
-// in elements and the head dimension is contiguous. Returns
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16, hd 64 or 128)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBM = 128;                   // query rows a block: two warpgroups of 64
+constexpr int kConsumers = 256;            // the two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kRow = 128;                  // bytes of a swizzled panel row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Keys a KV tile: 128 at hd 64; 64 at hd 128, so that a consumer thread's S
+// tile, the P of the tile before it and its O accumulator (64 + 32 + 64
+// registers at 128 keys) stay within the 168 registers a thread of a
+// 288-thread block can have (three warps share an SM quarter's registers).
+template <int HD>
+constexpr int block_n() {
+  return HD == 64 ? 128 : 64;
+}
+
+// Shared memory: a [rows][hd] bf16 tile is hd / 64 panels of [rows][64], each
+// row 128 bytes with the 128-byte swizzle TMA writes and wgmma reads. Q's
+// tile, then per stage a K tile and a V tile, then the mbarriers.
+template <int HD>
+struct Cfg {
+  static constexpr int kBN = block_n<HD>();
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kStages = 4;
+  static constexpr int kQBytes = kBM * HD * 2;
+  static constexpr int kTileBytes = kBN * HD * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kDataBytes = kQBytes + kStages * kStageBytes;
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte period
+  static constexpr int kSmem = 1024 + kDataBytes + 8 * (1 + 2 * kStages);
+};
+
+struct TcArgs {
+  void* o;
+  long long o_sb, o_ss, o_sh;  // strides in elements; head_dim is contiguous
+  int Sq, Skv, G, n_qtiles;
+  int causal, window, q_offset;
+  float scale, softcap;
+};
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units. K-major operands: the stride
+// offset steps 8 rows (1024 bytes), the leading offset is unused. MN-major
+// operands: the leading offset steps from one 64-column panel to the next,
+// the stride offset 8 rows along K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barriers shared by the two consumer warpgroups (256 threads): one
+// warpgroup syncs, the other arrives
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// Registers an asynchronous wgmma reads or writes: the compiler may neither
+// read them early nor reuse them before the wait that follows.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d[32] = A·B (scale_d 0) or d + A·B (scale_d 1): m64n64k16, A and B
+// K-major bf16 in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_n64(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      " %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64] = A·B (scale_d 0) or d + A·B (scale_d 1): m64n128k16, A and B
+// K-major bf16 in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_n128(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      " %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] += A·B: m64n64k16, A from registers (four bf16 pairs a thread,
+// the mma fragment layout), B MN-major bf16 in 128-byte-swizzled shared
+// memory (transposed by the descriptor)
+__device__ __forceinline__ void wgmma_rs_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      " %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A·B: m64n128k16, A from registers (four bf16 pairs a thread,
+// the mma fragment layout), B MN-major bf16 in 128-byte-swizzled shared
+// memory (transposed by the descriptor)
+__device__ __forceinline__ void wgmma_rs_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      " %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, scale_d);
+  } else {
+    wgmma_ss_n128(d, da, db, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The absolute positions of a consumer thread's two rows, and the first and
+// last of its warpgroup's rows below Sq.
+struct Rows {
+  int pos0, pos1, wg_first, wg_last;
+};
+
+// Scale, softcap and mask the scores of one KV tile (keys t0 ..), then the
+// online softmax of the thread's two rows: their new max in m, alpha the
+// factor for the accumulator, this lane's share of the row sum in l, and
+// exp(s - m) in sc. The four lanes lane / 4 share a row.
+template <int kBN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const TcArgs& a,
+                                             const Rows& rows, int t0, int lane) {
+  // masking only on tiles that cross an edge for some row of the warpgroup
+  const bool edge = t0 + kBN > a.Skv || (a.causal && t0 + kBN - 1 > rows.wg_first) ||
+                    (a.window > 0 && t0 <= rows.wg_last - a.window);
+#pragma unroll
+  for (int e = 0; e < kBN / 2; ++e) {
+    float x = sc[e] * a.scale;
+    if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
+    if (edge) {
+      const int t = t0 + 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
+      const int qp = (e / 2) & 1 ? rows.pos1 : rows.pos0;
+      if (!(t < a.Skv && (!a.causal || t <= qp) && (a.window <= 0 || t > qp - a.window)))
+        x = kNegInf;
+    }
+    sc[e] = x;
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = m[hr];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // a row with every key masked so far keeps m = NEG_INF; subtracting 0
+    // then gives exp(NEG_INF) = 0 for its masked scores, not exp(0)
+    const float m_sub = (mx == kNegInf ? 0.f : mx) * kLog2e;
+    alpha[hr] = exp2f(fmaf(m[hr], kLog2e, -m_sub));
+    m[hr] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = exp2f(fmaf(sc[4 * j + 2 * hr + c], kLog2e, -m_sub));
+        sc[4 * j + 2 * hr + c] = p;
+        sum += p;
+      }
+    l[hr] = alpha[hr] * l[hr] + sum;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, TcArgs a) {
+  using C = Cfg<HD>;
+  constexpr int kBN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + C::kQBytes;      // stage s: K at + s * kStageBytes, V after it
+  const uint32_t q_bar = q_s + C::kDataBytes;  // then full[kStages], empty[kStages]
+  const uint32_t full_bar = q_bar + 8, empty_bar = q_bar + 8 * (1 + C::kStages);
+
+  const int qt = a.n_qtiles - 1 - static_cast<int>(blockIdx.x);  // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / a.G;
+  const int q0 = qt * kBM;
+  const int q_last = a.q_offset + min(q0 + kBM, a.Sq) - 1;  // absolute positions
+  int kt_end = (a.Skv + kBN - 1) / kBN;
+  if (a.causal) kt_end = q_last < 0 ? 0 : min(kt_end, q_last / kBN + 1);
+  int kt_begin = 0;
+  if (a.window > 0) kt_begin = max(0, a.q_offset + q0 - a.window + 1) / kBN;
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers / 32);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues every load
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_bar, C::kQBytes);
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+        tma_load_4d(q_s + p * kBM * kRow, &tm_q, q_bar, 64 * p, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::kStages;
+        mbar_wait(empty_bar + 8 * s, ((i / C::kStages) & 1) ^ 1);  // the stage is free
+        mbar_expect_tx(full_bar + 8 * s, C::kStageBytes);
+        const int t0 = (kt_begin + i) * kBN;
+        const uint32_t k_s = kv_s + s * C::kStageBytes, v_s = k_s + C::kTileBytes;
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load_4d(k_s + p * kBN * kRow, &tm_k, full_bar + 8 * s, 64 * p, kvh, t0, b);
+          tma_load_4d(v_s + p * kBN * kRow, &tm_v, full_bar + 8 * s, 64 * p, kvh, t0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer thread: warpgroup wg owns block rows wg*64 .. wg*64+63; this
+  // thread holds rows r and r + 8 of them (the wgmma accumulator layout)
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r = wg * 64 + warp * 16 + lane / 4;
+  const Rows rows{a.q_offset + q0 + r, a.q_offset + q0 + r + 8, a.q_offset + q0 + wg * 64,
+                  a.q_offset + min(q0 + wg * 64 + 64, a.Sq) - 1};
+  const uint32_t q_wg = q_s + wg * 64 * kRow;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[kBN / 2];  // S of the newest tile: sc[4j + 2h + c] is row r + 8h,
+                      // key t0 + 8j + 2 (lane % 4) + c
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+  uint32_t pa[kBN / 16][4];  // P of the tile before it, the A fragments of its k16 steps
+
+  // Issue order: the two consumer warpgroups take turns (named barriers 1
+  // and 2), each issuing its products for a tile together: S of tile i and
+  // O += P V of tile i - 1. While one warpgroup's products run, the other
+  // runs its softmax, and within a warpgroup the softmax of tile i runs
+  // under the PV product of tile i - 1.
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1 && n_tiles > 0) named_arrive(1);  // warpgroup 0 goes first
+
+  mbar_wait(q_bar, 0);
+  // n_tiles + 1 turns: S of tile 0; S of tile i with PV of tile i - 1; PV of
+  // the last tile (warpgroup 1 leaves its last turn unpassed: none follows)
+  for (int i = 0; n_tiles > 0 && i <= n_tiles; ++i) {
+    const int s = i % C::kStages, prev = (i + C::kStages - 1) % C::kStages;
+    if (i < n_tiles) mbar_wait(full_bar + 8 * s, (i / C::kStages) & 1);
+    named_sync(my_turn);
+    wgmma_fence();
+    if (i < n_tiles) {  // S = Q K^T of tile i
+      const uint32_t k_s = kv_s + s * C::kStageBytes;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t k_off = (kk % 4) * 32;  // 16 columns = 32 bytes
+        wgmma_ss<kBN>(sc, smem_desc(q_wg + (kk / 4) * kBM * kRow + k_off, 16, 1024),
+                      smem_desc(k_s + (kk / 4) * kBN * kRow + k_off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    }
+    if (i > 0) {  // O += P V of tile i - 1: V's [keys][hd] tile is the MN-major B
+                  // operand; a k16 step is 16 key rows (2048 bytes), the hd panels
+                  // kBN * 128 bytes apart
+      const uint32_t v_s = kv_s + prev * C::kStageBytes + C::kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], smem_desc(v_s + kk * 16 * kRow, kBN * kRow, 1024));
+      wgmma_commit();
+    }
+    if (wg == 0 || i < n_tiles) named_arrive(their_turn);
+    if (i < n_tiles) {
+      if (i > 0) {
+        wgmma_wait<1>();  // S is done; the PV product may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(sc);
+      softmax_tile<kBN>(sc, m, l, alpha, a, rows, (kt_begin + i) * kBN, lane);
+    }
+    if (i > 0) {
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * prev);  // done with tile i - 1's stage
+    }
+    if (i < n_tiles) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      // P in bf16 as the A fragments of the k16 steps over this tile's keys
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    }
+  }
+
+  // epilogue: o / l (0 for a row with no key), bf16 pairs into [B, S, H, hd]
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float lr = l[hr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+    const int qi = q0 + r + 8 * hr;
+    if (qi >= a.Sq) continue;
+    __nv_bfloat16* orow = out + b * a.o_sb + qi * a.o_ss + h * a.o_sh + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, TcArgs a,
+           int B, int H, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  static bool configured = false;  // the attribute is per kernel, set once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>(a.n_qtiles), static_cast<unsigned>(H),
+                  static_cast<unsigned>(B));
+  flash_tc_kernel<HD><<<grid, kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// Launch the CUDA-core kernel on `stream` (PyTorch's current stream) of CUDA
+// device `device`. dtype 0 is float32, 1 is bfloat16 (q, k, v and o share
+// it; bf16 at hd 64 or 128 is the tensor-core kernel's, and refused here).
+// Strides are in elements and the head dimension is contiguous. Returns
 // cudaGetLastError() after the launch (0 on success); the kernel runs
 // asynchronously and a fault during the run shows at the next
 // synchronization.
@@ -304,4 +779,38 @@ extern "C" int flash_attention_launch(
   if (dtype == 0) return dispatch<float>(a, B, hd, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, hd, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Launch the tensor-core kernel (bf16, hd 64 or 128) on `stream` of CUDA
+// device `device`. Strides are in elements, the head dimension is contiguous;
+// the base addresses and every other stride must be multiples of 16 bytes
+// (TMA). Returns 0 on success, cudaGetLastError() after a refused launch,
+// or minus the driver's CUresult when a tensor map cannot be encoded.
+extern "C" int flash_attention_tc_launch(
+    const void* q, const void* k, const void* v, void* o, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
+    int Sq, int Skv, int H, int KV, int hd, int causal, int window, int q_offset, float scale,
+    float softcap, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (KV < 1 || H % KV != 0 || H > 65535 || B > 65535 || (hd != 64 && hd != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
+  CUtensorMap tq, tk, tv;
+  // 64-column boxes of 128-byte rows, swizzled as wgmma reads them
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const int bn = hd == 64 ? tc::block_n<64>() : tc::block_n<128>();
+  int r = hopper::encode_map(&tq, bf16, 2, q, B, Sq, H, hd, q_sb, q_ss, q_sh, 64, tc::kBM, sw);
+  if (r == 0)
+    r = hopper::encode_map(&tk, bf16, 2, k, B, Skv, KV, hd, k_sb, k_ss, k_sh, 64, bn, sw);
+  if (r == 0)
+    r = hopper::encode_map(&tv, bf16, 2, v, B, Skv, KV, hd, v_sb, v_ss, v_sh, 64, bn, sw);
+  if (r != 0) return -r;
+  const tc::TcArgs a{o,      o_sb,   o_ss,   o_sh,     Sq,    Skv,    H / KV,
+                     (Sq + tc::kBM - 1) / tc::kBM, causal, window, q_offset, scale, softcap};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return tc::launch<64>(tq, tk, tv, a, B, H, s);
+  return tc::launch<128>(tq, tk, tv, a, B, H, s);
 }

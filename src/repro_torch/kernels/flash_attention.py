@@ -5,9 +5,12 @@ wrapper (port of ``repro.kernels.flash_attention``).
   PyTorch: the full float32 score matrix and a masked softmax.
   ``ops.flash_attention`` takes it for CPU tensors and ``chip_smoke.py``
   holds the kernel against it.
-* :func:`flash_attention` launches the hand-written kernel
-  (``csrc/flash_attention.cu``) on CUDA tensors and counts its launches in
-  ``flash_attention.launches``.
+* :func:`flash_attention` launches a hand-written kernel of
+  ``csrc/flash_attention.cu`` on CUDA tensors: the tensor-core kernel
+  (wgmma, TMA) for bf16 at hd 64 or 128, the CUDA-core kernel otherwise
+  (:func:`kernel_variant`). It counts launches in
+  ``flash_attention.launches`` and, by variant, in
+  ``flash_attention.launches_by_variant``.
 
 The function is the Pallas kernel's: grouped-query heads (query head h reads
 KV head h // G), scale hd^-1/2, optional tanh logit softcap, causal masking
@@ -33,6 +36,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 MAX_GROUP = 32  # query heads per KV head the kernels take
+TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernels (bf16)
+COPY_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
 
 def _attend_plain(q, k, v, mask, softcap: float):
@@ -84,20 +89,44 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 # the CUDA kernel (csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 
-_LIB_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4   # dtype, q, k, v, o
+_STRIDED_ARGS = ([ctypes.c_void_p] * 4                   # q, k, v, o
                  + [ctypes.c_longlong] * 12               # q/k/v/o strides
                  + [ctypes.c_int] * 9                     # B Sq Skv H KV hd causal window q_offset
                  + [ctypes.c_float] * 2                   # scale, softcap
                  + [ctypes.c_int, ctypes.c_void_p])       # device, stream
+_ENTRY_POINTS = {"cuda_core": ("flash_attention_launch", [ctypes.c_int] + _STRIDED_ARGS),
+                 "tensor_core": ("flash_attention_tc_launch", _STRIDED_ARGS)}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _entry(variant: str):
+    """The C entry point of ``variant`` in the built library."""
+    name, argtypes = _ENTRY_POINTS[variant]
+    fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = _LIB_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def kernel_variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call of either attention wrapper runs:
+    ``"tensor_core"`` (wgmma / mma products) for bf16 at hd 64 or 128,
+    ``"cuda_core"`` (float32 fmaf) for float32, whose 2e-5 contract TF32
+    would break, and for bf16 at the other head dims. A static choice
+    between two hand-written kernels, not a fallback."""
+    return "tensor_core" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
+
+
+def check_aligned(fn: str, name: str, why: str, strides, itemsize: int,
+                  data_ptr: int) -> None:
+    """A kernel that loads a [B, S, heads, hd] tensor by TMA (a 4-D tensor
+    map) needs its base address and its batch, sequence and head strides
+    (``strides[:3]``, in elements) to be multiples of 16 bytes; raise
+    otherwise. ``why`` names the copy."""
+    if data_ptr % COPY_ALIGN or any((s * itemsize) % COPY_ALIGN for s in strides[:3]):
+        raise ValueError(f"{fn}: {why} needs {name}'s base and strides to be "
+                         f"multiples of {COPY_ALIGN} bytes; {name} has base "
+                         f"{data_ptr:#x} and strides {tuple(strides)} of {itemsize} bytes")
 
 
 def check_attention_inputs(fn: str, q, k, v, q_dims: int):
@@ -139,19 +168,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     check_attention_inputs("flash_attention", q, k, v, 4)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    variant = kernel_variant(q.dtype, hd)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if variant == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned("flash_attention", name, "the tensor-core kernel's TMA load",
+                          t.stride(), t.element_size(), t.data_ptr())
+    dtype_arg = [] if variant == "tensor_core" else [DTYPES[q.dtype]]
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    err = _lib().flash_attention_launch(
-        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    err = _entry(variant)(
+        *dtype_arg, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         *strides, B, Sq, Skv, H, KV, hd, int(bool(causal)), int(window),
         int(q_offset), float(hd) ** -0.5, float(softcap), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                           f"{q.dtype})")
+        what = (f"tensor map encoding failed: CUresult {-err}" if err < 0
+                else f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: {what} "
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"tensor_core": 0, "cuda_core": 0}

@@ -11,7 +11,9 @@ The same numpy inputs (from a seed) go to both sides:
 * ragged shapes (which the Pallas wrapper refuses) against
   ``ref.mha_reference``;
 * a tile whose every query is past its window: zeros, as the Pallas
-  kernel gives, never NaN.
+  kernel gives, never NaN;
+* the launch planning the kernels depend on: the (dtype, hd) -> kernel
+  variant choice, the decode split plan, the TMA alignment check.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -27,8 +29,10 @@ from test_kernels import DECODE_CASES, FLASH_CASES
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.decode_attention import (
+    SPLIT_GRAIN, decode_attention_plain, split_plan)
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, check_aligned, flash_attention_plain, kernel_variant)
 
 
 def _inputs(seed, shapes, dtype):
@@ -109,3 +113,60 @@ def test_flash_plain_fully_masked_rows_give_zero():
     # a decode step with no valid slot is the same case
     out = decode_attention_plain(q[:, 0], k, v, 0)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# the pure-Python launch planning the CUDA kernels depend on (no card needed)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_kernel_variant_choice(dtype, hd):
+    """bf16 at hd 64 / 128 (every served model's heads) runs the tensor-core
+    flash and decode kernels; float32 (TF32 would break its 2e-5 contract)
+    and bf16 at the other head dims the CUDA-core kernels."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "cuda_core")
+    assert kernel_variant(dtype, hd) == want
+
+
+_MAIN_T = 1536  # the served cache length (cache_len(1024 + 128))
+
+
+@pytest.mark.parametrize("rows", [1, 3 * 8, 8 * 8, 4096])
+@pytest.mark.parametrize("valid_len", sorted({c[5] for c in DECODE_CASES} | {0, 1, _MAIN_T}))
+def test_decode_split_plan_covers_valid_slots(valid_len, rows):
+    """Chunks [i * split_len, min((i + 1) * split_len, valid_len)) cover
+    [0, valid_len) exactly once, none starts at or past valid_len, and a
+    valid length of at most one grain is one chunk. With no valid slot the
+    plan is one empty chunk (its block writes the zero output)."""
+    sl, n = split_plan(rows, valid_len, 132)
+    assert sl > 0 and sl % SPLIT_GRAIN == 0 and n >= 1
+    chunks = [(i * sl, min((i + 1) * sl, valid_len)) for i in range(n)]
+    if valid_len == 0:
+        assert chunks == [(0, 0)]
+        return
+    assert all(start < valid_len for start, _ in chunks)
+    covered = [t for start, end in chunks for t in range(start, end)]
+    assert covered == list(range(valid_len))
+    if valid_len <= SPLIT_GRAIN:
+        assert n == 1
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 4, 64), (1, 77, 8, 128), (3, 5, 2, 8)])
+def test_copy_alignment_accepts_contiguous(shape):
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    check_aligned("flash_attention", "q", "TMA", t.stride(), t.element_size(), 256)
+
+
+@pytest.mark.parametrize("strides,data_ptr", [
+    ((8 * 4 * 72, 4 * 72, 72 + 4, 1), 0),   # head stride of 76 bf16 = 152 bytes
+    ((8 * 36, 36, 4, 1), 0),                # seq stride of 36 bf16 = 72 bytes
+    ((2048, 256, 64, 1), 8),                # base 8 bytes off
+])
+def test_copy_alignment_rejects_misaligned(strides, data_ptr):
+    """A stride or base that is not a multiple of 16 bytes cannot be copied
+    by TMA or cp.async: the wrapper raises before any launch."""
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        check_aligned("flash_attention", "k", "the tensor-core kernel's TMA load",
+                      strides, 2, data_ptr)

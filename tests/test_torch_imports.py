@@ -128,12 +128,11 @@ def test_decode_split_covers_the_valid_slots():
     """Splits are whole 64-slot tiles, cover [0, valid_len) and give at least
     two blocks per SM when the valid slots are enough for that."""
     for bkv, vl in ((64, 1100), (1, 1024), (24, 17), (64, 32768), (4, 1), (8, 0)):
-        sl = decode_attention.split_len(bkv, vl, 132)
-        n = max(1, -(-vl // sl))
+        sl, n = decode_attention.split_plan(bkv, vl, 132)
         assert sl % decode_attention.SPLIT_GRAIN == 0 and n * sl >= vl
         assert (n - 1) * sl < max(vl, 1)  # no split starts at or past valid_len
         assert n * bkv >= min(2 * 132, -(-max(vl, 1) // 64) * bkv)
-    assert decode_attention.split_len(64, 1100, 132) == 256
+    assert decode_attention.split_plan(64, 1100, 132) == (256, 5)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
