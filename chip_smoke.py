@@ -5,9 +5,10 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` and holds each kernel against its plain PyTorch version on the card
-at the kernel test shapes of ``tests/test_kernels.py`` and at the main-path
-shapes. It then drives the port's two paths at full size and checks that
-each launched its kernels:
+at the kernel test shapes of ``tests/test_kernels.py`` (and, for the tick
+kernel, :data:`TICK_EDGE_CASES`) and at the main-path shapes. It then drives
+the port's two paths at full size and checks that each launched its
+kernels:
 
 * the capacity planner's path: ``run_ensemble`` over a 10^5-member dense
   tail of the repo's dense-tail bench scenario, then a ``plan_capacity``
@@ -44,9 +45,11 @@ H100_FP64_FLOPS = 34e12
 
 # the tick kernel's work per (member, row) lane and tick: reads occ (8 B),
 # writes row_w, f_lp, f_hp (8 B each) and fire (1 B); the power fold does
-# two pow(), four multiplies, one add and one divide (pow counted as one op)
+# three multiplies, one add and one divide. pow() is taken once per value of
+# the frequency table (five a block), and busy = k_lp f_lp^g + k_hp f_hp^g
+# only when a command changes a frequency, so neither is counted per tick
 TICK_BYTES_PER_LANE_TICK = 8 + 3 * 8 + 1
-TICK_FLOPS_PER_LANE_TICK = 10
+TICK_FLOPS_PER_LANE_TICK = 5
 
 # the kernel shapes of tests/test_kernels.py (N not a block multiple, R=1
 # and R=3, a short ring with fast escalation, hot cases where brakes fire)
@@ -62,6 +65,19 @@ TICK_CASES = [
     (13, 64, 3, 4, 20, 3, 25, 1.18),
     (3, 48, 1, 8, 5, 2, 4, 1.05),
     (16, 32, 2, 16, 20, 3, 25, 0.95),
+]
+# the redesigned kernel's edges: rings deeper than 21 slots (oob 40, past 64
+# slots, the deepest the kernel takes), R = 1 and R = 3, ragged last blocks,
+# two table frequencies that coincide, occ contiguous [N, T, R] or a view of
+# time-major [T, N, R] storage
+TICK_EDGE_CASES = [
+    # (N, T, R, oob, brake, esc, power_scale, consts overrides, occ layout)
+    (37, 300, 1, 40, 3, 25, 1.18, {}, "time-major"),
+    (300, 200, 3, 40, 3, 25, 1.18, {}, "contiguous"),
+    (29, 400, 3, 100, 7, 25, 1.18, {}, "time-major"),
+    (21, 300, 1, 70, 5, 10, 1.18, {}, "contiguous"),
+    (19, 250, 3, 40, 3, 25, 1.12, {"lp_t1": 1.0}, "time-major"),
+    (9, 1000, 2, 895, 3, 25, 1.18, {}, "time-major"),  # ring of 896 slots
 ]
 ROW_W_RTOL = 1e-6  # the oracle contract's power tolerance (DESIGN.md §15)
 
@@ -270,6 +286,37 @@ def randn(rng, shape, dtype: str, dev):
     import torch
     return torch.as_tensor(rng.standard_normal(shape, dtype="float32"),
                            device=dev).to(getattr(torch, dtype))
+
+
+def check_tick_cases(dev) -> None:
+    """The tick kernel against its plain version on the card at the kernel
+    test shapes of tests/test_kernels.py (occ contiguous [N, T, R]) and at
+    :data:`TICK_EDGE_CASES`."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import tick
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    cases = ([(N, T, R, oob, brake, esc, ps, {}, "contiguous")
+              for N, T, R, _, oob, brake, esc, ps in TICK_CASES]
+             + TICK_EDGE_CASES)
+    for N, T, R, oob, brake, esc, ps, over, layout in cases:
+        consts = tick.TickConsts(**{**TICK_CONSTS, "power_scale": ps, **over})
+        rng = np.random.default_rng(N * 1000 + T)
+        occ = torch.as_tensor(rng.uniform(0.3, 1.0, (N, T, R)), **f64)
+        if layout == "time-major":
+            occ = occ.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+        bscale = torch.as_tensor(rng.uniform(0.9, 1.0, (T, R)), **f64)
+        rb = torch.full((R,), consts.n_servers
+                        * (consts.p0_srv_w + 0.8 * consts.k_lp_w), **f64)
+        kw = dict(oob_ticks=oob, brake_ticks=brake,
+                  ring_depth=max(oob, brake) + 1, esc=esc)
+        got = tick.polca_tick_loop(occ, bscale, rb, consts, **kw)
+        want = tick.polca_tick_plain(occ, bscale, rb, consts, **kw)
+        torch.cuda.synchronize()
+        compare_tick(got, want, f"N={N} T={T} R={R} oob={oob} brake={brake} "
+                                f"esc={esc} D={kw['ring_depth']} {layout} occ"
+                                + "".join(f" {k}={v}" for k, v in over.items()))
 
 
 def check_attention_cases(dev) -> None:
@@ -594,7 +641,8 @@ def main() -> int:
 
     from repro_torch.kernels import _build, tick
     from repro_torch.provisioning.batched import (
-        effective_occupancy, lower_ensemble, run_tick_model, tick_consts)
+        _slo_impacts, effective_occupancy, lower_ensemble, run_tick_model,
+        tick_consts)
     from repro_torch.provisioning.montecarlo import EnsembleSpec, run_ensemble
     from repro_torch.provisioning.planner import RiskConstraints, plan_capacity
 
@@ -623,22 +671,7 @@ def main() -> int:
             print(f"  {line}")
 
     # 3. each kernel against its plain version, on the card
-    f64 = dict(dtype=torch.float64, device=dev)
-    for N, T, R, _, oob, brake, esc, ps in TICK_CASES:
-        consts = tick.TickConsts(**{**TICK_CONSTS, "power_scale": ps})
-        rng = np.random.default_rng(N * 1000 + T)
-        occ = torch.as_tensor(rng.uniform(0.3, 1.0, (N, T, R)), **f64)
-        bscale = torch.as_tensor(rng.uniform(0.9, 1.0, (T, R)), **f64)
-        rb = torch.full((R,), consts.n_servers
-                        * (consts.p0_srv_w + 0.8 * consts.k_lp_w), **f64)
-        kw = dict(oob_ticks=oob, brake_ticks=brake,
-                  ring_depth=max(oob, brake) + 1, esc=esc)
-        got = tick.polca_tick_loop(occ, bscale, rb, consts, **kw)
-        want = tick.polca_tick_plain(occ, bscale, rb, consts, **kw)
-        torch.cuda.synchronize()
-        compare_tick(got, want, f"N={N} T={T} R={R} oob={oob} "
-                                f"brake={brake} esc={esc}")
-
+    check_tick_cases(dev)
     check_attention_cases(dev)
 
     sc = main_scenario()
@@ -646,22 +679,42 @@ def main() -> int:
     t0 = time.perf_counter()
     model, _, _ = lower_ensemble(spec)
     lowering_s = time.perf_counter() - t0
+    f64 = dict(dtype=torch.float64, device=dev)
+    occ_ms = cuda_ms(lambda: effective_occupancy(model, dev), reps=2)
     occ = effective_occupancy(model, dev)
+    if not occ.permute(1, 0, 2).is_contiguous():
+        raise AssertionError("the main path's occ is not time-major")
     bscale = torch.as_tensor(model.budget_scale, **f64)
     rb = torch.as_tensor(model.row_budget_w, **f64)
     kw = dict(oob_ticks=model.oob_ticks, brake_ticks=model.brake_ticks,
               ring_depth=model.ring_depth, esc=model.escalation_ticks)
     consts = tick_consts(model)
     N, T, R = occ.shape
+    tick_plan = tick.launch_plan(N, R, model.ring_depth, dev)
+    if tick_plan["max_ring_depth"] != tick.MAX_RING_DEPTH:
+        raise AssertionError(f"csrc/tick.cu takes rings of up to "
+                             f"{tick_plan['max_ring_depth']} slots, the wrapper "
+                             f"{tick.MAX_RING_DEPTH}")
+    print(f"kernel tick launch plan at the main shape (N={N}, R={R}, "
+          f"D={model.ring_depth}): {tick_plan['threads']} threads x "
+          f"{tick_plan['lanes_per_thread']} lanes a thread, {tick_plan['blocks']} "
+          f"blocks, {tick_plan['blocks_per_sm']} resident a SM x {tick_plan['sms']} "
+          f"SMs, {tick_plan['waves']:.3f} waves, ring {tick_plan['ring_bytes']} B a "
+          f"block (deepest ring {tick_plan['max_ring_depth']}); "
+          + "; ".join(ptxas_report("tick")))
     got = tick.polca_tick_loop(occ, bscale, rb, consts, **kw)
     want = tick.polca_tick_plain(occ, bscale, rb, consts, **kw)
     torch.cuda.synchronize()
+    if not all(got[k].permute(1, 0, 2).is_contiguous()
+               for k in ("row_w", "fire", "f_lp", "f_hp")):
+        raise AssertionError("the tick kernel's planes are not time-major")
     tick_abs = compare_tick(got, want, f"main path N={N} T={T} R={R}")
     del got, want
-    tick_ms = cuda_ms(lambda: tick.polca_tick_loop(occ, bscale, rb, consts,
-                                                   **kw), reps=5)
-    plain_ms = cuda_ms(lambda: tick.polca_tick_plain(occ, bscale, rb, consts,
-                                                     **kw), reps=2)
+    kernel = lambda: tick.polca_tick_loop(occ, bscale, rb, consts, **kw)  # noqa: E731
+    tick_ms = device_ms([kernel], calls=4)
+    tick_call_ms = cuda_ms(kernel, reps=5)
+    plain_ms = device_ms([lambda: tick.polca_tick_plain(occ, bscale, rb, consts, **kw)],
+                         calls=1, replays=1)
     lane_ticks = N * T * R
     # occ and the outputs per lane-tick; bscale and row_budget (f64) and
     # n_brakes (int32) once
@@ -670,14 +723,46 @@ def main() -> int:
     bytes_ms = tick_bytes / H100_BYTES_PER_S * 1e3
     ops_ms = lane_ticks * TICK_FLOPS_PER_LANE_TICK / H100_FP64_FLOPS * 1e3
     tick_bound_ms = max(bytes_ms, ops_ms)
-    print(f"kernel tick at the main-path shape: {tick_ms:.3f} ms "
-          f"(plain version {plain_ms:.3f} ms; bound {tick_bound_ms:.3f} ms "
-          f"by {'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+    print(f"kernel tick at the main-path shape: device {tick_ms:.4f} ms, call "
+          f"{tick_call_ms:.4f} ms (plain version {plain_ms:.3f} ms, device "
+          f"time; bound {tick_bound_ms:.4f} ms by "
+          f"{'bytes' if bytes_ms >= ops_ms else 'operations'}: "
           f"{tick_bytes / 1e9:.3f} GB)")
-    engine_ms = cuda_ms(lambda: run_tick_model(model, keep_series=False,
-                                               device=dev), reps=1)
-    del occ
+
+    # the device engine, its parts, and its statistics against the plain
+    # path's (the same lowered model on the CPU)
+    out = kernel()
+    slo_ms = cuda_ms(lambda: _slo_impacts(model, occ, out["f_lp"], out["f_hp"]),
+                     reps=1)
+    imp = _slo_impacts(model, occ, out["f_lp"], out["f_hp"])
+    copy_ms = cuda_ms(lambda: [t.cpu().numpy() for t in imp], reps=1)
+    del out, occ, imp
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_tick_model(model, keep_series=False, keep_brake_fire=False,
+                          device=dev)
+    torch.cuda.synchronize()
+    engine_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = run_tick_model(model, keep_series=False, keep_brake_fire=False,
+                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(card.n_brakes, cpu.n_brakes):
+        raise AssertionError("main path: brake counts differ card vs CPU")
+    for name in ("peak_frac", "mean_frac", "impacts_hp", "impacts_lp"):
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name),
+                                   rtol=ROW_W_RTOL, atol=1e-9, err_msg=name)
+    rest_ms = engine_ms - occ_ms - tick_ms - slo_ms - copy_ms
+    print(f"device engine at the main shape: {engine_ms:.1f} ms (occupancy "
+          f"{occ_ms:.1f} ms, tick kernel {tick_ms:.2f} ms, SLO proxy "
+          f"{slo_ms:.1f} ms, copying its impact planes to the host "
+          f"{copy_ms:.1f} ms, the rest {rest_ms:.1f} ms: row sums, small "
+          f"copies, allocation); the plain path on "
+          f"the CPU ({cpu_s:.1f} s): brake counts identical "
+          f"({int(cpu.n_brakes.sum())} brakes), peak/mean fractions and SLO "
+          f"impacts within {ROW_W_RTOL}")
+    del card, cpu
 
     # 4. the planner's main path at full size: run_ensemble on a 10^5-member tail
     reset_counts()
@@ -761,10 +846,12 @@ def main() -> int:
         "launches": main_launches,
         "max_abs_err": tick_abs,
         "ms": tick_ms,
+        "call_ms": tick_call_ms,
         "plain_ms": plain_ms,
         "bound_ms": tick_bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "plan": tick_plan,
     }]
     for row in attn:
         kernels.append({"name": row["name"], "route": "cuda", "source": row["source"],

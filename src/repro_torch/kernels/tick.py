@@ -4,18 +4,25 @@ Port of ``repro.kernels.tick``. The batched ensemble engine
 (``provisioning.batched``) advances N members x T ticks of the POLCA state
 machine; its inner loop is three fused pieces: the closed-form power fold
 over rows, the :class:`~repro_torch.core.policy.PolcaPolicy`
-latch/escalation update, and the NaN-sentinel actuation-delay ring.
+latch/escalation update, and the actuation-delay ring.
 
 * The step functions below (:func:`row_power_w`, :func:`polca_latch_step`,
   :func:`apply_ring_tick`, :func:`push_ring_commands`, :func:`_tick_body`)
   are that math as float64 torch functions on ``[C, R]`` tensors, line for
-  line the JAX functions of the same names. :func:`polca_tick_plain` runs
-  them over T ticks: the kernel's plain version, which ``ops.polca_tick``
-  takes for CPU tensors and ``chip_smoke.py`` holds the kernel against.
+  line the JAX functions of the same names (a NaN-sentinel ring).
+  :func:`polca_tick_plain` runs them over T ticks: the kernel's plain
+  version, which ``ops.polca_tick`` takes for CPU tensors and
+  ``chip_smoke.py`` holds the kernel against.
 * :func:`polca_tick_loop` launches the hand-written CUDA kernel
-  (``csrc/tick.cu``, built by ``_build``) on CUDA tensors: one thread per
-  (member, row) lane with the whole T-tick loop inside the thread. It
-  counts its launches in ``polca_tick_loop.launches``.
+  (``csrc/tick.cu``, built by ``_build``) on CUDA tensors: two (member, row)
+  lanes a thread with the whole T-tick loop inside the thread, its ring
+  holding codes into :func:`freq_table`. It counts its launches in
+  ``polca_tick_loop.launches``; :func:`launch_plan` reports its launch
+  shape and residency.
+
+Both write the four per-tick planes as ``[N, T, R]``-shaped views of
+time-major ``[T, N, R]`` storage: a tick's lanes are contiguous, which is
+what the kernel's warps need, and a caller sees the JAX kernel's shapes.
 
 Unlike the JAX versions, the ring helpers update ``ring`` in place (it is
 the only copy of the ring state, so nothing is lost and a ``[D, 2, C, R]``
@@ -186,51 +193,91 @@ def _tick_body(k, carry, occ_k, bscale_k, row_budget, c: TickConsts, *,
     return (f_lp, f_hp, ring, lat, nbr), rw, fire
 
 
+def _planes(N: int, T: int, R: int, device) -> Dict[str, torch.Tensor]:
+    """The four per-tick output planes, ``[N, T, R]``-shaped views of
+    time-major ``[T, N, R]`` storage (the kernel's coalesced layout)."""
+    def plane(dtype):
+        return torch.empty((T, N, R), dtype=dtype,
+                           device=device).permute(1, 0, 2)
+    return dict(row_w=plane(torch.float64), fire=plane(torch.bool),
+                f_lp=plane(torch.float64), f_hp=plane(torch.float64))
+
+
 def polca_tick_plain(occ, bscale, row_budget, consts: TickConsts, *,
                      oob_ticks: int, brake_ticks: int, ring_depth: int,
                      esc: int) -> Dict[str, torch.Tensor]:
     """The kernel's plain PyTorch version: the same T-tick loop on the whole
     ``[N, R]`` lane block at once, writing the same output planes as
-    :func:`polca_tick_loop`."""
+    :func:`polca_tick_loop` (time-major storage, ``[N, T, R]`` views)."""
     N, T, R = occ.shape
     carry = _tick_init(N, R, ring_depth, occ.dtype, occ.device)
-    row_w = torch.empty_like(occ)
-    fire = torch.empty(occ.shape, dtype=torch.bool, device=occ.device)
-    f_lp = torch.empty_like(occ)
-    f_hp = torch.empty_like(occ)
+    out = _planes(N, T, R, occ.device)
     for k in range(T):
         carry, rw, fi = _tick_body(
             k, carry, occ[:, k], bscale[k], row_budget, consts,
             oob_ticks=oob_ticks, brake_ticks=brake_ticks,
             ring_depth=ring_depth, esc=esc)
-        row_w[:, k] = rw
-        fire[:, k] = fi
-        f_lp[:, k] = carry[0]
-        f_hp[:, k] = carry[1]
-    return dict(row_w=row_w, fire=fire, f_lp=f_lp, f_hp=f_hp,
-                n_brakes=carry[4])
+        out["row_w"][:, k] = rw
+        out["fire"][:, k] = fi
+        out["f_lp"][:, k] = carry[0]
+        out["f_hp"][:, k] = carry[1]
+    return dict(out, n_brakes=carry[4])
+
+
+def freq_table(c: TickConsts) -> tuple:
+    """Every value ``f_lp`` and ``f_hp`` can hold: the initial 1.0 and the
+    value of each command the policy issues, in the order of the kernel's
+    codes 1..5 (``csrc/tick.cu``: kOne, kLpT1, kLpT2, kHpT2, kBrake). The
+    kernel's ring carries these codes in place of the values."""
+    return (1.0, c.lp_t1, c.lp_t2, c.hp_t2, c.brake_freq)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernel (csrc/tick.cu)
 # ---------------------------------------------------------------------------
 
-_LIB_ARGTYPES = ([ctypes.c_void_p] * 8          # occ, bscale, row_budget, 5 outputs
-                 + [ctypes.c_int] * 7           # N, T, R, oob, brake, D, esc
-                 + [ctypes.c_double] * len(TickConsts._fields)
-                 + [ctypes.c_int, ctypes.c_void_p])  # device, stream
+# csrc/tick.cu kMaxRingDepth: the ring takes 2 bytes a slot for each of a
+# block's 128 threads in shared memory, within the 227 KB a block can have
+MAX_RING_DEPTH = 896
+
+# the scalars the kernel reads, in the order of polca_tick_launch
+_KERNEL_CONSTS = ("t1", "t2", "t1_buf", "t2_buf", "p0_srv_w", "k_lp_w",
+                  "k_hp_w", "gamma", "n_servers", "power_scale")
+_LAUNCH_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3   # occ, strides
+                    + [ctypes.c_void_p] * 7    # bscale, row_budget, 5 outputs
+                    + [ctypes.c_int] * 7       # N, T, R, oob, brake, D, esc
+                    + [ctypes.c_double] * len(_KERNEL_CONSTS)
+                    + [ctypes.POINTER(ctypes.c_double),  # freq_table
+                       ctypes.c_int, ctypes.c_void_p])   # device, stream
+_PLAN_ARGTYPES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p]
+_PLAN_KEYS = ("threads", "lanes_per_thread", "blocks", "blocks_per_sm",
+              "sms", "ring_bytes", "max_ring_depth")
 
 
 def _tick_lib() -> ctypes.CDLL:
     lib = _build.load("tick")
-    fn = lib.polca_tick_launch
-    if fn.argtypes is None:
-        fn.argtypes = _LIB_ARGTYPES
-        fn.restype = ctypes.c_int
+    if lib.polca_tick_launch.argtypes is None:
+        lib.polca_tick_launch.argtypes = _LAUNCH_ARGTYPES
+        lib.polca_tick_launch.restype = ctypes.c_int
+        lib.polca_tick_plan.argtypes = _PLAN_ARGTYPES
+        lib.polca_tick_plan.restype = ctypes.c_int
     return lib
 
 
-def _check(name, t, shape, dtype, device):
+def _check_ring(oob_ticks: int, brake_ticks: int, ring_depth: int) -> int:
+    D = int(ring_depth)
+    if not (1 <= int(oob_ticks) < D and 1 <= int(brake_ticks) < D):
+        raise ValueError(f"ring_depth={D} must exceed oob_ticks={oob_ticks} "
+                         f"and brake_ticks={brake_ticks} (both >= 1)")
+    if D > MAX_RING_DEPTH:
+        raise ValueError(f"ring_depth={D} exceeds the tick kernel's "
+                         f"{MAX_RING_DEPTH} slots (its ring lives in shared "
+                         f"memory)")
+    return D
+
+
+def _check(name, t, shape, dtype, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"polca_tick_loop: {name} is on {t.device}, "
                          f"occ on {device}")
@@ -240,8 +287,29 @@ def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"polca_tick_loop: {name} must have shape "
                          f"{tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"polca_tick_loop: {name} must be contiguous")
+
+
+def launch_plan(n_members: int, n_rows: int, ring_depth: int,
+                device=None) -> Dict[str, float]:
+    """How the kernel launches for ``n_members x n_rows`` lanes on a CUDA
+    device: threads a block, lanes a thread, blocks, resident blocks an SM
+    (CUDA's occupancy calculator for this build), SMs, ring bytes a block,
+    the largest ring depth, and ``waves`` = blocks / (resident blocks a SM
+    x SMs)."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    err = _tick_lib().polca_tick_plan(int(n_members) * int(n_rows),
+                                      int(ring_depth), index, out)
+    if err != 0:
+        raise RuntimeError(f"polca_tick_plan failed: CUDA error {err} "
+                           f"(ring_depth={ring_depth})")
+    plan = dict(zip(_PLAN_KEYS, (int(v) for v in out)))
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
 
 
 def polca_tick_loop(occ, bscale, row_budget, consts: TickConsts, *,
@@ -250,14 +318,20 @@ def polca_tick_loop(occ, bscale, row_budget, consts: TickConsts, *,
     """The non-predictive POLCA tick loop as one CUDA kernel launch.
 
     ``occ`` is the *effective* per-tick occupancy ``[N, T, R]`` (60 s-grid
-    interpolation x row-alive mask, precomputed by the engine), ``bscale``
+    interpolation x row-alive mask, precomputed by the engine) in any
+    layout: the kernel reads it through its strides, coalesced when it is a
+    view of time-major ``[T, N, R]`` storage, as
+    ``provisioning.batched.effective_occupancy`` builds it. ``bscale`` is
     the ``[T, R]`` fault budget scale, ``row_budget`` the ``[R]`` static
-    budgets; all float64, contiguous, on one CUDA device. The kernel runs on
-    PyTorch's current stream and does not synchronize.
+    budgets, both contiguous; all float64 on one CUDA device. ``ring_depth``
+    is at most :data:`MAX_RING_DEPTH`. The kernel runs on PyTorch's current
+    stream and does not synchronize.
 
     Returns ``dict(row_w=[N, T, R], fire=[N, T, R] bool,
-    f_lp=[N, T, R], f_hp=[N, T, R], n_brakes=[N, R] int32)``.
+    f_lp=[N, T, R], f_hp=[N, T, R], n_brakes=[N, R] int32)``; the four
+    planes are views of time-major ``[T, N, R]`` storage.
     """
+    D = _check_ring(oob_ticks, brake_ticks, ring_depth)
     if occ.device.type != "cuda":
         raise ValueError(f"polca_tick_loop launches a CUDA kernel; occ is on "
                          f"{occ.device} (ops.polca_tick takes the plain "
@@ -267,28 +341,21 @@ def polca_tick_loop(occ, bscale, row_budget, consts: TickConsts, *,
                          f"shape {tuple(occ.shape)}")
     N, T, R = occ.shape
     dev = occ.device
-    _check("occ", occ, (N, T, R), torch.float64, dev)
+    _check("occ", occ, (N, T, R), torch.float64, dev, contiguous=False)
     _check("bscale", bscale, (T, R), torch.float64, dev)
     _check("row_budget", row_budget, (R,), torch.float64, dev)
-    D = int(ring_depth)
-    if not (1 <= int(oob_ticks) < D and 1 <= int(brake_ticks) < D):
-        raise ValueError(f"ring_depth={D} must exceed oob_ticks={oob_ticks} "
-                         f"and brake_ticks={brake_ticks} (both >= 1)")
-    row_w = torch.empty((N, T, R), dtype=torch.float64, device=dev)
-    fire = torch.empty((N, T, R), dtype=torch.bool, device=dev)
-    f_lp = torch.empty_like(row_w)
-    f_hp = torch.empty_like(row_w)
-    n_brakes = torch.empty((N, R), dtype=torch.int32, device=dev)
-    out = dict(row_w=row_w, fire=fire, f_lp=f_lp, f_hp=f_hp,
-               n_brakes=n_brakes)
-    if N * R == 0:
+    out = dict(_planes(N, T, R, dev),
+               n_brakes=torch.zeros((N, R), dtype=torch.int32, device=dev))
+    if N * R == 0 or T == 0:
         return out
+    freq = (ctypes.c_double * 5)(*freq_table(consts))
     err = _tick_lib().polca_tick_launch(
-        occ.data_ptr(), bscale.data_ptr(), row_budget.data_ptr(),
-        row_w.data_ptr(), fire.data_ptr(), f_lp.data_ptr(), f_hp.data_ptr(),
-        n_brakes.data_ptr(), N, T, R, int(oob_ticks), int(brake_ticks), D,
-        int(esc), *(float(v) for v in consts), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        occ.data_ptr(), *occ.stride(), bscale.data_ptr(),
+        row_budget.data_ptr(), *(out[k].data_ptr() for k in
+                                 ("row_w", "fire", "f_lp", "f_hp", "n_brakes")),
+        N, T, R, int(oob_ticks), int(brake_ticks), D, int(esc),
+        *(float(getattr(consts, f)) for f in _KERNEL_CONSTS), freq,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"polca_tick kernel launch failed: CUDA error "
                            f"{err} (N={N}, T={T}, R={R}, ring_depth={D})")

@@ -376,15 +376,20 @@ def _interp_weights(model: TickModel) -> Tuple[np.ndarray, np.ndarray]:
 def effective_occupancy(model: TickModel, device) -> torch.Tensor:
     """[N, T, R] per-tick occupancy on ``device``: the 60 s grid
     interpolated onto the tick grid, times the row-alive mask. The numpy
-    oracle's expression, elementwise, so bit-identical to it."""
+    oracle's expression, elementwise, so bit-identical to it.
+
+    The result is a view of time-major ``[T, N, R]`` storage, built that
+    way (only the small 60 s grid is transposed), so the tick kernel reads a
+    tick's lanes contiguously and no ``[N, T, R]`` plane is copied to change
+    its layout."""
     i_idx, i_w = _interp_weights(model)
     f64 = dict(dtype=torch.float64, device=device)
-    occ60 = torch.as_tensor(model.occ60, **f64).transpose(1, 2)  # [N, T60, R]
-    ii = torch.as_tensor(i_idx, device=device)
-    w = torch.as_tensor(i_w, **f64)[:, None]
-    alive = torch.as_tensor(model.alive, **f64)  # [T, R]
-    occ = (occ60[:, ii] * (1.0 - w) + occ60[:, ii + 1] * w) * alive
-    return occ.contiguous()
+    occ60 = torch.as_tensor(model.occ60, **f64).permute(2, 0, 1).contiguous()
+    ii = torch.as_tensor(i_idx, device=device)  # occ60 is [T60, N, R]
+    w = torch.as_tensor(i_w, **f64)[:, None, None]
+    alive = torch.as_tensor(model.alive, **f64)[:, None, :]  # [T, 1, R]
+    occ = (occ60[ii] * (1.0 - w) + occ60[ii + 1] * w) * alive  # [T, N, R]
+    return occ.permute(1, 0, 2)
 
 
 def tick_consts(model: TickModel) -> TickConsts:
@@ -416,7 +421,8 @@ def _slo_impacts(model: TickModel, occ, f_lp, f_hp):
                       (model.a_lp, model.svc_lp, f_lp)):
         sd = (torch.tensor(a, **f64) / torch.clamp_min(f, 1e-3)
               + (1.0 - a))  # [N, T, R]
-        inflow = ((occ * sd - 1.0) * model.dt).transpose(0, 1).contiguous()
+        # [T, N, R]: contiguous ticks when occ and f are time-major views
+        inflow = ((occ * sd - 1.0) * model.dt).transpose(0, 1)
         svc = torch.tensor(svc, **f64)
         backlog = torch.zeros((N, R), **f64)
         imp = torch.empty((N, R, model.n_slots), **f64)

@@ -187,3 +187,70 @@ def test_planner_rejects_survivability_gate():
     with pytest.raises(ValueError, match="survive"):
         plan_capacity(sc, device="cpu",
                       constraints=RiskConstraints(survive=object()))
+
+
+def _main_path_model(n_seeds: int):
+    """The dense-tail bench scenario of benchmarks/batched_engine.py (the
+    main path of chip_smoke.py), lowered by the port at ``n_seeds``
+    members."""
+    from repro_torch.experiments.scenario import FleetSpec, TrafficSpec
+    from repro_torch.provisioning.batched import lower_ensemble
+
+    sc = Scenario(
+        name="batched-bench-diurnal", duration_s=HALF_HOUR,
+        fleet=FleetSpec(n_provisioned=20, added_frac=0.30, n_rows=2,
+                        rows_per_rack=2),
+        traffic=TrafficSpec(occ_peak=0.97, generator="diurnal"),
+        budget="nominal", power_scale=1.15, compare_to_reference=False)
+    return lower_ensemble(EnsembleSpec(sc, n_seeds=n_seeds, seed0=1))[0]
+
+
+def test_effective_occupancy_is_time_major_and_bit_equal():
+    """effective_occupancy returns an [N, T, R] view of time-major storage,
+    bit-equal to the [N, T, R] contiguous expression it replaced."""
+    import torch
+
+    from repro_torch.provisioning.batched import (
+        _interp_weights,
+        effective_occupancy,
+    )
+
+    model = _main_path_model(7)
+    occ = effective_occupancy(model, "cpu")
+    assert tuple(occ.shape) == (7, model.n_ticks, model.n_rows)
+    assert occ.permute(1, 0, 2).is_contiguous()
+    i_idx, i_w = _interp_weights(model)
+    occ60 = torch.as_tensor(model.occ60).transpose(1, 2)  # [N, T60, R]
+    ii = torch.as_tensor(i_idx)
+    w = torch.as_tensor(i_w)[:, None]
+    want = ((occ60[:, ii] * (1.0 - w) + occ60[:, ii + 1] * w)
+            * torch.as_tensor(model.alive)).contiguous()
+    assert torch.equal(occ, want)
+
+
+def test_freq_table_holds_main_path_frequencies():
+    """On the main path's scenario (a few hundred members, brakes firing at
+    a hotter power scale), every frequency of the plain version's planes is
+    in the kernel's table, and the engine's planes are time-major."""
+    import torch
+
+    from repro_torch.kernels import tick
+    from repro_torch.provisioning.batched import (
+        effective_occupancy,
+        tick_consts,
+    )
+
+    model = dataclasses.replace(_main_path_model(300), power_scale=1.30)
+    occ = effective_occupancy(model, "cpu")
+    consts = tick_consts(model)
+    out = tick.polca_tick_plain(
+        occ, torch.as_tensor(model.budget_scale),
+        torch.as_tensor(model.row_budget_w), consts,
+        oob_ticks=model.oob_ticks, brake_ticks=model.brake_ticks,
+        ring_depth=model.ring_depth, esc=model.escalation_ticks)
+    assert int(out["n_brakes"].sum()) > 0
+    seen = set(np.unique(out["f_lp"].numpy())) | set(
+        np.unique(out["f_hp"].numpy()))
+    assert len(seen) > 2 and seen <= set(tick.freq_table(consts))
+    assert all(out[k].permute(1, 0, 2).is_contiguous()
+               for k in ("row_w", "fire", "f_lp", "f_hp"))

@@ -115,3 +115,56 @@ def test_latch_step_predictive_informed_escalation():
     assert bool(lat_p.hpc) and float(hp_p) == c.hp_t2
     assert not bool(lat_n.hpc) and torch.isnan(hp_n).all()
     assert int(lat_n.t2s) == 1
+
+
+def _frequency_values(out) -> set:
+    return set(np.unique(out["f_lp"].numpy())) | set(
+        np.unique(out["f_hp"].numpy()))
+
+
+@pytest.mark.parametrize("case", TICK_CASES,
+                         ids=lambda c: f"n{c[0]}t{c[1]}r{c[2]}ps{c[7]}")
+def test_freq_table_holds_every_frequency(case):
+    """The kernel's ring carries codes into ``freq_table`` in place of
+    frequencies: every value the plain version's f_lp/f_hp planes hold is in
+    the table (hot and cool cases, rings of 6 and 21 slots)."""
+    consts, arrays, kw = _inputs(case)
+    c = tick.TickConsts(**consts)
+    out = tick.polca_tick_plain(*(torch.from_numpy(a) for a in arrays), c,
+                                **kw)
+    table = tick.freq_table(c)
+    assert len(table) == 5 and table[0] == 1.0
+    assert _frequency_values(out) <= set(table)
+
+
+def test_plain_planes_are_time_major_views():
+    """The plain version writes the kernel's layout: [N, T, R]-shaped views
+    of [T, N, R] storage, whatever the layout of occ."""
+    consts, arrays, kw = _inputs(TICK_CASES[2])
+    occ, bscale, row_budget = (torch.from_numpy(a) for a in arrays)
+    c = tick.TickConsts(**consts)
+    want = tick.polca_tick_plain(occ, bscale, row_budget, c, **kw)
+    got = tick.polca_tick_plain(occ.permute(1, 0, 2).contiguous()
+                                .permute(1, 0, 2), bscale, row_budget, c, **kw)
+    for k in ("row_w", "fire", "f_lp", "f_hp"):
+        assert tuple(got[k].shape) == tuple(occ.shape), k
+        assert got[k].permute(1, 0, 2).is_contiguous(), k
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["n_brakes"], want["n_brakes"])
+
+
+@pytest.mark.parametrize("depth,match", [
+    (tick.MAX_RING_DEPTH + 1, "exceeds"),
+    (20, "must exceed"),  # not deeper than oob_ticks
+])
+def test_kernel_ring_depth_limit_raises(depth, match):
+    """The kernel's ring lives in shared memory: a depth past
+    MAX_RING_DEPTH (or one that cannot hold the delays) raises before any
+    launch, on any device."""
+    consts, arrays, _ = _inputs(TICK_CASES[0])
+    tick.polca_tick_loop.launches = 0
+    with pytest.raises(ValueError, match=match):
+        tick.polca_tick_loop(*(torch.from_numpy(a) for a in arrays),
+                             tick.TickConsts(**consts), oob_ticks=20,
+                             brake_ticks=3, ring_depth=depth, esc=25)
+    assert tick.polca_tick_loop.launches == 0
