@@ -13,6 +13,14 @@ kernels:
 * the capacity planner's path: ``run_ensemble`` over a 10^5-member dense
   tail of the repo's dense-tail bench scenario, then a ``plan_capacity``
   bisection on 1024-member probes (the tick kernel);
+* the torch scan engine (``engine="torch"``, PyTorch code, no kernel of
+  its own): (a) against the CUDA engine on that 10^5-member model, (b) the
+  predictive policy's 10^5-member tail through ``run_ensemble`` and its
+  card-vs-CPU check, (c) a 4-generator x 10^3-member grid against a loop,
+  (d) member chunking and two shards on the one card against one block,
+  (e) a fault timeline on a (2, 2) power hierarchy against the CUDA engine,
+  (f) a predictive ``plan_capacity`` bisection at 1024 seeds; each line
+  ends with the card's name and power limit;
 * the serving path: ``ServeEngine`` on full-width llama3.2-1b with random
   weights, 8 requests of 1024-token prompts and 128 new tokens (the flash
   prefill and split-KV decode kernels), its prefill->decode consistency,
@@ -30,6 +38,8 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -635,7 +645,354 @@ def time_attention(dev, rng_seed: int = 7) -> list:
     return [flash, decode]
 
 
+# ---------------------------------------------------------------------------
+# the torch scan engine (engine="torch"): predictive policies, grids, member
+# chunking and sharding, fault timelines and the power hierarchy
+# ---------------------------------------------------------------------------
+
+CARD = "card not read yet"  # the nvidia-smi name,power.limit line, set by main
+GRID_GENERATORS = ("diurnal", "bursty", "colocated", "nighttime")
+GRID_MEMBERS = 1000
+INVARIANCE_MEMBERS = 10_000
+INVARIANCE_CHUNK = 4096
+SHARD_DEVICES = ["cuda:0", "cuda:0"]  # two member shards on the one card
+PROFILE_TICKS = 100  # ticks of the torch engine traced by torch.profiler
+CARD_VS_CPU_MEMBERS = 256
+FAULT_MEMBERS = 2048
+SLO_RTOL, SLO_ATOL = 1e-6, 1e-9  # the oracle contract's SLO-impact tolerance
+
+
+def say(line: str) -> None:
+    """Print a measurement line with the card's name and power limit."""
+    print(f"{line} [{CARD}]")
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str):
+    """Sum the wall seconds (card work included) of every call of
+    ``module.name`` made inside the block; yields a one-item list."""
+    import torch
+    real = getattr(module, name)
+    spent = [0.0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, real)
+
+
+def compare_runs(got, want, label: str) -> dict:
+    """Two BatchedRuns of one model under the oracle contract: brake-tick
+    sets (when both kept them) and counts bit-identical, power (peak and
+    mean fractions, series and node folds when kept) within ROW_W_RTOL, SLO
+    impacts within SLO_RTOL / SLO_ATOL. Returns the largest relative power
+    gap and absolute impact gap."""
+    import numpy as np
+    if not np.array_equal(got.n_brakes, want.n_brakes):
+        raise AssertionError(f"{label}: brake counts differ")
+    if (got.brake_fire is not None and want.brake_fire is not None
+            and not np.array_equal(got.brake_fire, want.brake_fire)):
+        raise AssertionError(f"{label}: brake-tick sets differ")
+    rel = 0.0
+    for name in ("peak_frac", "mean_frac", "total_frac", "row_w", "node_w"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label}: {name} kept by one run only")
+        if a is not None:
+            np.testing.assert_allclose(a, b, rtol=ROW_W_RTOL, atol=0.0,
+                                       err_msg=f"{label}: {name}")
+            rel = max(rel, float((np.abs(a - b) / np.abs(b)).max()))
+    imp = 0.0
+    for name in ("impacts_hp", "impacts_lp"):
+        a, b = getattr(got, name), getattr(want, name)
+        np.testing.assert_allclose(a, b, rtol=SLO_RTOL, atol=SLO_ATOL,
+                                   err_msg=f"{label}: {name}")
+        imp = max(imp, float(np.abs(a - b).max()))
+    return {"power_rel": rel, "impact_abs": imp,
+            "brakes": int(want.n_brakes.sum())}
+
+
+def assert_runs_identical(a, b, label: str) -> None:
+    """Every field two BatchedRuns kept, bit for bit."""
+    import numpy as np
+    for name in ("brake_fire", "n_brakes", "peak_frac", "mean_frac",
+                 "impacts_hp", "impacts_lp", "total_frac", "row_w", "node_w"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(x, y)):
+            raise AssertionError(f"{label}: {name} differs")
+
+
+def check_no_tick_launch(label: str) -> None:
+    """The torch engine is PyTorch code: a path on it launches no tick
+    kernel (its counts were zeroed just before)."""
+    if counts()["polca_tick"] != 0:
+        raise AssertionError(f"{label} launched the tick kernel")
+
+
+def torch_vs_cuda(dev, model) -> None:
+    """(a) engine="torch" against engine="cuda" on the main path's lowered
+    10^5-member model (non-predictive)."""
+    import torch
+    from repro_torch.provisioning.batched import run_tick_model
+
+    warm = dataclasses.replace(model, n_members=64, occ60=model.occ60[:64],
+                               seeds=model.seeds[:64])
+    run_tick_model(warm, engine="torch", device=dev)  # first-call set-up
+    reset_counts()
+    t0 = time.perf_counter()
+    cu = run_tick_model(model, engine="cuda", keep_series=False, device=dev)
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    if counts()["polca_tick"] != 1:
+        raise AssertionError(f"engine='cuda' launched {counts()}")
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = run_tick_model(model, engine="torch", keep_series=False, device=dev)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    check_no_tick_launch("engine='torch'")
+    gap = compare_runs(tr, cu, "torch vs cuda engine at the main shape")
+    say(f"(a) engine='torch' vs engine='cuda' on the main path's model "
+        f"(N={model.n_members}, T={model.n_ticks}, R={model.n_rows}, polca): "
+        f"torch engine {torch_s:.3f} s, cuda engine {cuda_s:.3f} s "
+        f"(ratio {torch_s / cuda_s:.2f}); brake-tick sets and counts "
+        f"bit-identical ({gap['brakes']} brakes), power max rel gap "
+        f"{gap['power_rel']:.3e}, SLO impacts max abs gap "
+        f"{gap['impact_abs']:.3e}")
+
+
+def torch_engine_breakdown(dev, model) -> None:
+    """Where the torch engine's time goes at the main shape, for the
+    model's policy and its predictive twin (same occupancy): lane set-up
+    (occupancy on the card, tables), the T-tick loop and the copy of the
+    outputs to the host, timed apart; then over :data:`PROFILE_TICKS`
+    ticks under ``torch.profiler``, the kernel launches a tick and the
+    device time a tick, and from these the device's busy share of the
+    unprofiled loop."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.provisioning import batched
+
+    members = np.arange(model.n_members)
+    for m in (model, dataclasses.replace(model, predictive=True)):
+        def lanes():
+            return batched._Lanes([m], members, dev, keep_series=False,
+                                  keep_fire=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ln = lanes()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k in range(m.n_ticks):
+            ln.step(k)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ln.results()
+        copy_s = time.perf_counter() - t0
+        del ln
+        ln = lanes()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in range(PROFILE_TICKS):
+                ln.step(k)
+            torch.cuda.synchronize()
+        del ln
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.device_time for e in kernels) / PROFILE_TICKS
+        per_tick_us = loop_s / m.n_ticks * 1e6
+        busy = (f"device busy {device_us:.1f} us a tick = "
+                f"{100 * device_us / per_tick_us:.1f} % of the unprofiled "
+                f"tick" if device_us > 0 else "device time not measured "
+                "(the profiler saw no device event)")
+        say(f"(a) torch engine breakdown, {'polca-predictive' if m.predictive else 'polca'}, "
+            f"N={m.n_members}, T={m.n_ticks}, R={m.n_rows}: set-up "
+            f"{setup_s:.3f} s, tick loop {loop_s:.3f} s ({per_tick_us:.0f} us "
+            f"a tick), outputs to the host {copy_s:.3f} s; over "
+            f"{PROFILE_TICKS} profiled ticks {len(kernels) / PROFILE_TICKS:.1f} "
+            f"device operations a tick, {busy}")
+        torch.cuda.empty_cache()
+
+
+def predictive_tail(dev, sc) -> None:
+    """(b) the predictive dense tail: polca-predictive on the main scenario
+    at 10^5 members through run_ensemble(engine="torch"), then the card
+    against the CPU at 256 members."""
+    import numpy as np
+    from repro_torch.provisioning import batched
+    from repro_torch.provisioning.montecarlo import EnsembleSpec, run_ensemble
+
+    pred = sc.with_policy("polca-predictive").with_(name="bench-predictive")
+    reset_counts()
+    with timed_calls(batched, "lower_ensemble") as lower_s, \
+            timed_calls(batched, "_run_models") as engine_s:
+        t0 = time.perf_counter()
+        res = run_ensemble(EnsembleSpec(pred, n_seeds=MAIN_MEMBERS, seed0=1),
+                           engine="torch")
+        e2e_s = time.perf_counter() - t0
+    check_no_tick_launch("run_ensemble(engine='torch')")
+    cvars = [res.brake_cvar(a) for a in (0.0, 0.9, 0.999)]
+    if not (res.n_members == MAIN_MEMBERS and np.isfinite(res.peak_fracs).all()
+            and np.isfinite(res.mean_fracs).all()
+            and cvars[0] <= cvars[1] <= cvars[2]
+            and math.isfinite(res.slo_cvar("low", 0.999))):
+        raise AssertionError("predictive tail: implausible result")
+    say(f"(b) predictive tail run_ensemble({MAIN_MEMBERS} members, "
+        f"polca-predictive, engine='torch'): lowering {lower_s[0]:.2f} s, "
+        f"engine {engine_s[0]:.3f} s, end to end {e2e_s:.2f} s = "
+        f"{MAIN_MEMBERS / e2e_s:.0f} members/s; brakes "
+        f"{int(res.brake_counts.sum())}, brake_prob {res.brake_prob():.4f}, "
+        f"peak max {res.peak_fracs.max():.4f}")
+    for ps in (sc.power_scale, 1.30):
+        model = batched.lower_ensemble(EnsembleSpec(
+            pred.with_(power_scale=ps), n_seeds=CARD_VS_CPU_MEMBERS,
+            seed0=1))[0]
+        card = batched.run_tick_model(model, engine="torch", device=dev)
+        cpu = batched.run_tick_model(model, engine="torch", device="cpu")
+        gap = compare_runs(card, cpu, f"predictive card vs CPU ps={ps}")
+        say(f"(b) predictive {CARD_VS_CPU_MEMBERS} members power_scale {ps}: "
+            f"card vs CPU brake-tick sets bit-identical ({gap['brakes']} "
+            f"brakes), power max rel gap {gap['power_rel']:.3e}, SLO impacts "
+            f"max abs gap {gap['impact_abs']:.3e}")
+
+
+def grid_vs_loop(dev, sc) -> None:
+    """(c) four generator families x 10^3 members: one run_tick_models call
+    against a loop of run_tick_model, bit for bit."""
+    import torch
+    from repro_torch.provisioning.batched import (
+        lower_ensemble, run_tick_model, run_tick_models)
+    from repro_torch.provisioning.montecarlo import EnsembleSpec
+
+    models = [lower_ensemble(EnsembleSpec(sc.with_(
+        name=f"grid-{g}", traffic=dataclasses.replace(sc.traffic, generator=g)),
+        n_seeds=GRID_MEMBERS, seed0=1))[0] for g in GRID_GENERATORS]
+    reset_counts()
+    t0 = time.perf_counter()
+    loop = [run_tick_model(m, engine="torch", device=dev) for m in models]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = run_tick_models(models, device=dev)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    check_no_tick_launch("the torch grid")
+    for m, g, l in zip(models, grid, loop):
+        assert_runs_identical(g, l, f"grid vs loop {m.base_name}")
+    say(f"(c) grid {len(models)} generators x {GRID_MEMBERS} members "
+        f"(T={models[0].n_ticks}, R={models[0].n_rows}): one run_tick_models "
+        f"{grid_s:.3f} s, loop of run_tick_model {loop_s:.3f} s (loop first; "
+        f"ratio {loop_s / grid_s:.2f}); every field bit-identical; brakes "
+        f"{[int(r.n_brakes.sum()) for r in grid]}")
+
+
+def invariance(dev, sc) -> None:
+    """(d) 10^4 members: member_chunk=4096 and two shards on the one card
+    against one flat block, bit for bit."""
+    import torch
+    from repro_torch.provisioning.batched import lower_ensemble, run_tick_model
+    from repro_torch.provisioning.montecarlo import EnsembleSpec
+
+    model = lower_ensemble(EnsembleSpec(sc, n_seeds=INVARIANCE_MEMBERS,
+                                        seed0=1))[0]
+    times = {}
+    runs = {}
+    for label, kw in (("flat", dict(member_chunk=0, device=dev)),
+                      (f"member_chunk={INVARIANCE_CHUNK}",
+                       dict(member_chunk=INVARIANCE_CHUNK, device=dev)),
+                      (f"devices={SHARD_DEVICES}",
+                       dict(devices=SHARD_DEVICES))):
+        t0 = time.perf_counter()
+        runs[label] = run_tick_model(model, engine="torch", keep_series=False,
+                                     **kw)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+    for label, run in runs.items():
+        assert_runs_identical(run, runs["flat"], f"{label} vs flat")
+    say(f"(d) invariance at {INVARIANCE_MEMBERS} members: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; all bit-identical to flat ({int(runs['flat'].n_brakes.sum())} "
+        f"brakes)")
+
+
+def faults_and_hierarchy(dev, sc) -> None:
+    """(e) a 4-row site under HierarchySpec((2, 2)) with a node-derate and a
+    row crash, lowered by the port: the CUDA and torch engines agree."""
+    import torch
+    from repro_torch.chaos import FaultEvent
+    from repro_torch.provisioning.batched import lower_ensemble, run_tick_model
+    from repro_torch.provisioning.montecarlo import EnsembleSpec
+
+    fsc = sc.with_hierarchy((2, 2)).with_faults([
+        FaultEvent("node-derate", t=600.0, node="pdu1", factor=0.7,
+                   until=1400.0, ramp_s=120.0),
+        FaultEvent("row-crash", t=300.0, row=2),
+        FaultEvent("row-revive", t=900.0, row=2),
+    ]).with_(name="faults-hierarchy")
+    model = lower_ensemble(EnsembleSpec(fsc, n_seeds=FAULT_MEMBERS,
+                                        seed0=1))[0]
+    if model.node_matrix is None or (model.alive == 1.0).all() or (
+            model.budget_scale == 1.0).all():
+        raise AssertionError("faults/hierarchy did not reach the lowering")
+    reset_counts()
+    cu = run_tick_model(model, engine="cuda", device=dev)
+    if counts()["polca_tick"] != 1:
+        raise AssertionError(f"engine='cuda' launched {counts()}")
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = run_tick_model(model, engine="torch", device=dev)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    check_no_tick_launch("engine='torch' on faults/hierarchy")
+    if cu.node_w is None or tr.node_w is None:
+        raise AssertionError("node_w missing")
+    gap = compare_runs(tr, cu, "faults/hierarchy torch vs cuda")
+    say(f"(e) faults + hierarchy (2, 2), {FAULT_MEMBERS} members, node-derate "
+        f"pdu1 + row crash/revive: torch {torch_s:.3f} s; torch vs cuda "
+        f"brake-tick sets bit-identical ({gap['brakes']} brakes), power and "
+        f"node_w ({len(model.node_names)} nodes) max rel gap "
+        f"{gap['power_rel']:.3e}, SLO impacts max abs gap "
+        f"{gap['impact_abs']:.3e}")
+
+
+def torch_planner(cons) -> None:
+    """(f) plan_capacity(engine="torch") on the predictive planner scenario
+    at 1024 seeds."""
+    from repro_torch.provisioning.planner import plan_capacity
+
+    reset_counts()
+    t0 = time.perf_counter()
+    plan = plan_capacity(planner_scenario().with_policy("polca-predictive"),
+                         n_seeds=PLAN_SEEDS, seed0=42, engine="torch",
+                         constraints=cons, max_added_frac=0.4)
+    plan_s = time.perf_counter() - t0
+    check_no_tick_launch("plan_capacity(engine='torch')")
+    if not (plan.probes and 0 <= plan.safe_added_servers <= 4):
+        raise AssertionError(f"implausible plan {plan}")
+    verdicts = ", ".join(
+        f"+{p.added_servers}:{'ok' if p.feasible else 'no'}"
+        f"(brake_p={p.brake_prob:.3f}, slo_cvar={p.slo_cvar:.3f})"
+        for p in plan.probes)
+    say(f"(f) planner plan_capacity({PLAN_SEEDS} seeds, polca-predictive, "
+        f"engine='torch'): safe_added_servers={plan.safe_added_servers}, "
+        f"{len(plan.probes)} probes in {plan_s:.2f} s; probes {verdicts}")
+
+
 def main() -> int:
+    global CARD
     import numpy as np
     import torch
 
@@ -656,7 +1013,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible")
@@ -764,6 +1122,11 @@ def main() -> int:
           f"impacts within {ROW_W_RTOL}")
     del card, cpu
 
+    # 3a. the torch scan engine against the CUDA engine on the same model
+    torch_vs_cuda(dev, model)
+    torch_engine_breakdown(dev, model)
+    del model
+
     # 4. the planner's main path at full size: run_ensemble on a 10^5-member tail
     reset_counts()
     t0 = time.perf_counter()
@@ -828,6 +1191,14 @@ def main() -> int:
     print(f"planner plan_capacity({PLAN_SEEDS} seeds, engine='cuda'): "
           f"safe_added_servers={plan.safe_added_servers} in {plan_s:.2f} s; "
           f"probes {verdicts}; tick kernel launches {plan_launches}")
+
+    # 5b-f. the torch scan engine: the predictive tail, the grid, chunk and
+    # shard invariance, faults and the hierarchy, the predictive planner
+    predictive_tail(dev, sc)
+    grid_vs_loop(dev, sc)
+    invariance(dev, sc)
+    faults_and_hierarchy(dev, sc)
+    torch_planner(cons)
 
     # 6. the serving main path at full width, then the card against the CPU
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32

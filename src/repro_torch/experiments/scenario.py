@@ -5,12 +5,15 @@ composition (rows x servers, model, device), workload mix knobs, the policy
 to run (by name + params, so it round-trips through JSON), telemetry/latency
 constants, SLOs, seeds, and how the row power budget is set.
 
-The fields ``routing``, ``controller``, ``hierarchy``, ``faults`` and
-``alerts`` belong to subsystems this port does not carry yet (routed
-fleets, budget rebalancing, the power hierarchy, the chaos engine,
-alerting). They stay on the dataclass, so a scenario serialized by the JAX
-package loads here, but a scenario that sets one raises
-``NotImplementedError`` naming the missing port.
+``hierarchy`` (a :class:`HierarchySpec`, the power-budget tree over the
+rows) and ``faults`` (a :class:`~repro_torch.chaos.faults.FaultSpec`
+timeline) are ported: the batched lowering turns them into per-row leaf
+budgets, a node fold matrix, and per-tick row-alive masks and budget
+scales. The fields ``routing``, ``controller`` and ``alerts`` belong to
+subsystems this port does not carry yet (routed fleets, budget
+rebalancing, alerting). They stay on the dataclass, so a scenario
+serialized by the JAX package loads here, but a scenario that sets one
+raises ``NotImplementedError`` naming the missing port.
 
 Named scenarios live in a registry (``get_scenario`` / ``register_scenario``)
 so benchmarks, tests and the CLI can share exact configurations by name.
@@ -19,9 +22,11 @@ so benchmarks, tests and the CLI can share exact configurations by name.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+from repro_torch.chaos.faults import FaultSpec
 from repro_torch.core.policy import NoCap, OneThreshold, PolcaPolicy, PredictivePolcaPolicy
 from repro_torch.core.power_model import A100, TPU_V5E, DevicePower, ServerPower
 from repro_torch.core.slo import DEFAULT_SLO, SLO
@@ -46,8 +51,6 @@ POLICY_BUILDERS: Dict[str, Callable[..., Any]] = {
 UNPORTED_FIELDS: Dict[str, str] = {
     "routing": "repro_torch.fleet (routed fleets)",
     "controller": "repro_torch.fleet.controller (budget rebalancing)",
-    "hierarchy": "repro_torch.core.hierarchy (the power-budget tree)",
-    "faults": "repro_torch.chaos (fault timelines)",
     "alerts": "repro_torch.obs.alerts (online alerting)",
 }
 
@@ -106,6 +109,36 @@ class TrafficSpec:
 
 
 @dataclass(frozen=True)
+class HierarchySpec:
+    """A serializable arbitrary-depth power-budget tree over a fleet's rows
+    (built into a :class:`~repro_torch.core.hierarchy.PowerHierarchy` at
+    lowering time). ``shape`` lists the fan-out per interior level
+    root-down — ``(2, 2, 3)`` is a site with 2 PDU sets x 2 racks x 3 rows =
+    12 rows (``prod(shape)`` must equal ``FleetSpec.n_rows``).
+    ``level_names`` labels the interior levels root-down (defaults to
+    site/pdu/rack...). ``budget_fracs`` derates interior nodes by root-down
+    path (``"0/1"`` = the second rack of the first PDU set); a derate
+    multiplies every descendant row's budget, so each node's budget is
+    exactly the sum of its children's."""
+
+    shape: Tuple[int, ...] = (2, 2)
+    level_names: Optional[Tuple[str, ...]] = None
+    budget_fracs: Dict[str, float] = field(default_factory=dict)
+
+    @property
+    def n_rows(self) -> int:
+        return int(math.prod(self.shape))
+
+    def build(self, row_budget_w: Sequence[float]):
+        """The :class:`~repro_torch.core.hierarchy.PowerHierarchy` for these
+        per-row base budgets (derates applied, interior sums filled in)."""
+        from repro_torch.core.hierarchy import PowerHierarchy
+        return PowerHierarchy.from_shape(
+            self.shape, row_budget_w, level_names=self.level_names,
+            budget_fracs=self.budget_fracs)
+
+
+@dataclass(frozen=True)
 class TelemetryConfig:
     """Controller-plane constants (paper Table 1)."""
 
@@ -136,8 +169,11 @@ class Scenario:
     # subsystems not ported yet: each must stay None (see UNPORTED_FIELDS)
     routing: Optional[Any] = None
     controller: Optional[Any] = None
-    hierarchy: Optional[Any] = None
-    faults: Optional[Any] = None
+    # the power-budget tree over the rows (None = flat per-row budgets)
+    hierarchy: Optional[HierarchySpec] = None
+    # a fault timeline (row crashes, node derates, demand response); None or
+    # an empty spec is the fault-free run
+    faults: Optional[FaultSpec] = None
     alerts: Optional[Any] = None
 
     def __post_init__(self):
@@ -156,6 +192,22 @@ class Scenario:
     def with_policy(self, kind: str, **params) -> "Scenario":
         return self.with_(policy=PolicySpec(kind, params))
 
+    def with_faults(self, faults) -> "Scenario":
+        """Same scenario under a fault timeline: a
+        :class:`~repro_torch.chaos.faults.FaultSpec`, an iterable of
+        :class:`~repro_torch.chaos.faults.FaultEvent`, or ``None`` to clear."""
+        if faults is not None and not isinstance(faults, FaultSpec):
+            faults = FaultSpec(tuple(faults))
+        return self.with_(faults=faults)
+
+    def with_hierarchy(self, shape: Tuple[int, ...], **kw) -> "Scenario":
+        """Same scenario under an explicit budget tree (and a fleet sized to
+        match: ``n_rows`` is set to ``prod(shape)``). Keyword args pass to
+        :class:`HierarchySpec` (``level_names``, ``budget_fracs``)."""
+        spec = HierarchySpec(shape=tuple(shape), **kw)
+        return (self.with_(hierarchy=spec)
+                .with_fleet(n_rows=spec.n_rows))
+
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -171,6 +223,14 @@ class Scenario:
         d["traffic"] = TrafficSpec(**d.get("traffic", {}))
         d["telemetry"] = TelemetryConfig(**d.get("telemetry", {}))
         d["slo"] = SLO(**d.get("slo", {}))
+        if d.get("hierarchy") is not None:
+            h = dict(d["hierarchy"])
+            h["shape"] = tuple(h.get("shape", ()))
+            if h.get("level_names") is not None:
+                h["level_names"] = tuple(h["level_names"])
+            d["hierarchy"] = HierarchySpec(**h)
+        if d.get("faults") is not None:
+            d["faults"] = FaultSpec.from_dict(d["faults"])
         return cls(**d)
 
 

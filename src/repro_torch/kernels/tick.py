@@ -74,13 +74,24 @@ class PolcaLatches(NamedTuple):
 def row_power_w(c, occ, f_lp, f_hp):
     """Per-row watts at occupancy + frequency state — the expression the
     numpy tick oracle evaluates (kept in lockstep by the parity tests)."""
-    busy = c.k_lp_w * f_lp ** c.gamma + c.k_hp_w * f_hp ** c.gamma
+    return row_power_from_pows(c, occ, f_lp ** c.gamma, f_hp ** c.gamma)
+
+
+def row_power_from_pows(c, occ, pow_lp, pow_hp):
+    """:func:`row_power_w` with the frequency powers ``f ** gamma`` given
+    (the torch scan engine looks them up in a per-scenario table)."""
+    busy = c.k_lp_w * pow_lp + c.k_hp_w * pow_hp
     return c.power_scale * c.n_servers * (c.p0_srv_w + occ * busy)
 
 
 def lp_power_w(c, occ, f_lp):
+    return lp_power_from_pow(c, occ, f_lp ** c.gamma)
+
+
+def lp_power_from_pow(c, occ, pow_lp):
+    """:func:`lp_power_w` with ``f_lp ** gamma`` given."""
     return (c.power_scale * c.n_servers
-            * (c.lp_share * c.p0_srv_w + occ * c.k_lp_w * f_lp ** c.gamma))
+            * (c.lp_share * c.p0_srv_w + occ * c.k_lp_w * pow_lp))
 
 
 def polca_latch_step(latches: PolcaLatches, p_obs, p_raw, lp_frac, c, *,

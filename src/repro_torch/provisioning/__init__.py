@@ -1,6 +1,7 @@
 """Provisioning planner on the PyTorch port: trace-ensemble generators, the
-batched Monte-Carlo tick engine on the CUDA kernel, and the risk-constrained
-capacity search (port of ``repro.provisioning``).
+batched Monte-Carlo tick engines (the CUDA kernel and the torch scan
+engine), and the risk-constrained capacity search (port of
+``repro.provisioning``).
 
 Importing this package registers the scenario-family trace generators
 (bursty, colocated, failover-surge, rack-incident, nighttime).
@@ -11,21 +12,30 @@ from repro_torch.provisioning.batched import (
     TickModel,
     lower_ensemble,
     run_batched_ensemble,
+    run_batched_grid,
     run_tick_model,
+    run_tick_models,
 )
-from repro_torch.provisioning.ensembles import GENERATOR_FAMILY, compose_rows
+from repro_torch.provisioning.ensembles import (
+    GENERATOR_FAMILY,
+    SiteTrace,
+    compose_rows,
+    compose_site,
+)
 from repro_torch.provisioning.montecarlo import (
     EnsembleResult,
     EnsembleSpec,
     MemberStats,
     resolve_ensemble_budget,
     run_ensemble,
+    run_ensemble_grid,
 )
 from repro_torch.provisioning.planner import (
     PlanPoint,
     PlanResult,
     RiskConstraints,
     plan_capacity,
+    plan_scenarios,
 )
 
 __all__ = [
@@ -37,12 +47,18 @@ __all__ = [
     "PlanPoint",
     "PlanResult",
     "RiskConstraints",
+    "SiteTrace",
     "TickModel",
     "compose_rows",
+    "compose_site",
     "lower_ensemble",
     "plan_capacity",
+    "plan_scenarios",
     "resolve_ensemble_budget",
     "run_batched_ensemble",
+    "run_batched_grid",
     "run_ensemble",
+    "run_ensemble_grid",
     "run_tick_model",
+    "run_tick_models",
 ]

@@ -11,15 +11,22 @@ generator registry on import, so any
 declaratively via ``TrafficSpec(generator=..., gen_params=...)``.
 :func:`compose_rows` mixes a shared fleet-wide component with per-row noise
 under a correlation knob ``rho`` for multi-row scenarios.
+:func:`compose_site` folds per-row power series into rack and site series
+through a :class:`~repro_torch.core.hierarchy.PowerHierarchy`, preserving
+``sum(rows) == rack`` / ``sum(racks) == site``.
 
-Site-trace composition (``compose_site``) waits for the power hierarchy's
-port; the named ``mc-*`` scenarios wait for calibrated budgets.
+The named ``mc-*`` scenarios wait for calibrated budgets
+(``budget="calibrated"`` needs the event-driven simulator).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
 import numpy as np
 
+from repro_torch.core.hierarchy import PowerHierarchy
 from repro_torch.core.traces import DAY, occupancy_curve, register_occupancy_generator
 
 OCC_LO, OCC_HI = 0.05, 0.98  # same clip band as the diurnal baseline
@@ -179,3 +186,59 @@ GENERATOR_FAMILY = {
 for _name, _gen in GENERATOR_FAMILY.items():
     register_occupancy_generator(_name, _gen, overwrite=True)
 
+
+
+# ---------------------------------------------------------------------------
+# site-trace composition
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SiteTrace:
+    """Row -> rack -> ... -> site power composition (watts, [.., T] arrays).
+    ``rack_w`` is the leaf-parent level; ``node_w`` carries the full
+    per-node series (leaves first, root last, node order of the folding
+    :class:`~repro_torch.core.hierarchy.PowerHierarchy`)."""
+
+    row_w: np.ndarray  # [R, T]
+    rack_w: np.ndarray  # [K, T]
+    site_w: np.ndarray  # [T]
+    rack_of: np.ndarray  # [R] rack index per row
+    node_w: Optional[np.ndarray] = field(default=None, repr=False)  # [N, T]
+    node_names: Tuple[str, ...] = ()
+
+
+def compose_site(row_w: np.ndarray, *, rows_per_rack: int = 2,
+                 hierarchy: Optional[PowerHierarchy] = None) -> SiteTrace:
+    """Fold per-row power series through the planning hierarchy — one
+    :meth:`~repro_torch.core.hierarchy.PowerHierarchy.fold_w`. Every node's
+    series is the sum of its rows.
+
+    By default the tree is the two-level row -> rack -> site split, which
+    requires ``n_rows`` divisible by ``rows_per_rack`` (a ragged tail rack
+    raises). Pass an explicit ``hierarchy`` for arbitrary-depth (or ragged)
+    site topologies.
+    """
+    row_w = np.atleast_2d(np.asarray(row_w, float))
+    n_rows = row_w.shape[0]
+    if hierarchy is None:
+        if rows_per_rack < 1:
+            raise ValueError(f"rows_per_rack must be >= 1, got {rows_per_rack}")
+        if n_rows % rows_per_rack:
+            raise ValueError(
+                f"compose_site: {n_rows} rows do not divide into racks of "
+                f"{rows_per_rack} — a ragged tail rack would be silently "
+                f"mis-sized; pass a divisible n_rows or an explicit "
+                f"PowerHierarchy for ragged topologies")
+        # budgets are irrelevant for a watts fold; ones keep the tree valid
+        hierarchy = PowerHierarchy.two_level(
+            np.ones(n_rows), rows_per_rack=rows_per_rack)
+    elif hierarchy.n_leaves != n_rows:
+        raise ValueError(f"hierarchy has {hierarchy.n_leaves} leaves for "
+                         f"{n_rows} rows")
+    node_w = hierarchy.fold_w(row_w.T).T  # [N, T]
+    ordinal = {int(p): k for k, p in enumerate(hierarchy.leaf_parents)}
+    rack_of = np.asarray([ordinal[int(hierarchy.parent[i])]
+                          for i in range(n_rows)])
+    return SiteTrace(row_w=row_w, rack_w=node_w[hierarchy.leaf_parents],
+                     site_w=node_w[hierarchy.root], rack_of=rack_of,
+                     node_w=node_w, node_names=hierarchy.names)

@@ -1,12 +1,15 @@
 """Monte-Carlo ensembles of one scenario (port of ``repro.provisioning.montecarlo``).
 
 An :class:`EnsembleSpec` names N seeded traffic realizations of a base
-scenario. ``run_ensemble`` evaluates them in one batched pass on the tick
-engine (``engine="cuda"``: :mod:`repro_torch.provisioning.batched`, whose
-tick loop is the hand-written CUDA kernel in ``kernels/csrc/tick.cu``) and
+scenario. ``run_ensemble`` evaluates them in one batched pass on a tick
+engine of :mod:`repro_torch.provisioning.batched` (``engine="cuda"``, whose
+tick loop is the hand-written CUDA kernel in ``kernels/csrc/tick.cu``, or
+``engine="torch"``, the scan engine that also runs predictive policies) and
 returns an :class:`EnsembleResult`: powerbrake-count CDFs and CVaR,
 peak-power exceedance, pooled SLO percentiles — every statistic a
-vectorized reduction over per-member arrays.
+vectorized reduction over per-member arrays. ``run_ensemble_grid``
+evaluates N seeds x M scenarios, one lane tensor per geometry bucket on
+the torch engine.
 
 The row power budget is resolved **once** from the base scenario and pinned
 across every member: Monte-Carlo asks how one fixed infrastructure design
@@ -276,13 +279,35 @@ def run_ensemble(spec: EnsembleSpec, *, budget_w: Optional[float] = None,
     """Evaluate all members of ``spec`` in one batched pass.
 
     ``engine="cuda"`` is the tick engine whose inner loop is the hand-written
-    CUDA kernel (the counterpart of the JAX package's ``"pallas"``). It runs
-    on ``device`` (default: the CUDA card; raises when there is none unless
-    ``device="cpu"`` is passed, which takes the kernel's plain PyTorch
-    version). ``engine_opts`` forward to
+    CUDA kernel (the counterpart of the JAX package's ``"pallas"``,
+    non-predictive policies); ``engine="torch"`` the scan engine (the
+    counterpart of ``"jax"``). Both run on ``device`` (default: the CUDA
+    card; raises when there is none unless ``device="cpu"`` is passed, which
+    takes the kernel's plain PyTorch version or runs the scan engine on the
+    CPU). ``engine_opts`` forward to
     :func:`~repro_torch.provisioning.batched.run_batched_ensemble`
-    (``keep_series``, ``keep_brake_fire``, ``member_stats``).
+    (``keep_series``, ``keep_brake_fire``, ``member_stats``, and for the
+    torch engine ``member_chunk`` and ``devices``).
     """
     from repro_torch.provisioning.batched import run_batched_ensemble
     return run_batched_ensemble(spec, budget_w=budget_w, engine=engine,
                                 device=device, **engine_opts)
+
+
+def run_ensemble_grid(bases: Sequence[Scenario], *, n_seeds: int = 8,
+                      seed0: int = 1000, budget_w: Optional[float] = None,
+                      engine: str = "torch", device=None,
+                      **engine_opts) -> Dict[str, EnsembleResult]:
+    """N seeds x M scenarios in one batched pass, one
+    :class:`EnsembleResult` per base scenario, keyed by its name.
+
+    Dispatches to :func:`~repro_torch.provisioning.batched.run_batched_grid`:
+    ``engine="torch"`` buckets the scenarios by tick geometry and runs each
+    bucket as one lane tensor; ``engine="cuda"`` runs one kernel launch per
+    scenario. ``engine_opts`` forward there (``member_chunk``, ``devices``,
+    ``member_stats``, ...)."""
+    from repro_torch.provisioning.batched import run_batched_grid
+    specs = [EnsembleSpec(b, n_seeds=n_seeds, seed0=seed0) for b in bases]
+    results = run_batched_grid(specs, budget_w=budget_w, engine=engine,
+                               device=device, **engine_opts)
+    return {s.base.name: r for s, r in zip(specs, results)}

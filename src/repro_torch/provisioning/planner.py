@@ -18,14 +18,15 @@ The budget is resolved once from the provisioned baseline and held fixed
 across candidates and members: the question is "how far can THIS envelope
 stretch". The survivability gate (``RiskConstraints.survive``) runs the
 routed fleet under a fault timeline and waits for the ports of the fleet
-and the chaos engine.
+and the chaos injector (the fault timelines themselves are ported:
+``Scenario.with_faults`` runs on both batched engines).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.core.slo import DEFAULT_SLO, SLO
 from repro_torch.device import resolve_device
@@ -58,7 +59,7 @@ class RiskConstraints:
 
     ``survive`` is the JAX package's survivability gate (a fault timeline
     every probe must ride through); it needs the routed fleet and the chaos
-    engine, which are not ported yet, so it must stay None here."""
+    injector, which are not ported yet, so it must stay None here."""
 
     max_brake_prob: float = 0.0  # P[member exceeds the brake budget]
     max_brakes: int = 0  # brakes tolerated per realization/horizon
@@ -129,14 +130,15 @@ def plan_capacity(base: Scenario, *,
     ensemble at a pinned budget (resolved from ``base`` once unless
     ``budget_w`` pins it externally). ``engine`` and ``device`` select the
     ensemble backend per :func:`~repro_torch.provisioning.montecarlo.
-    run_ensemble`; ``engine_opts`` forward there.
+    run_ensemble` (``engine="torch"`` for predictive policies);
+    ``engine_opts`` forward there (``member_chunk``, ``devices``, ...).
     """
     if constraints.survive is not None:
         raise ValueError(
             "RiskConstraints.survive needs the event-driven routed-fleet "
-            "engine with the chaos injector (repro_torch.fleet, "
-            "repro_torch.chaos): not ported to PyTorch yet, and the batched "
-            f"tick engine does not model it (got engine={engine!r})")
+            "engine with the chaos injector (repro_torch.fleet): not ported "
+            "to PyTorch yet, and the batched tick engines do not model it "
+            f"(got engine={engine!r})")
     device = resolve_device(device)
     n_prov = base.fleet.n_provisioned
     cvar_alpha = constraints.slo_cvar_alpha
@@ -146,7 +148,8 @@ def plan_capacity(base: Scenario, *,
             raise ValueError(
                 f"slo_cvar_alpha={cvar_alpha} needs n_seeds >= {min_seeds} "
                 f"for the (1 - alpha) tail to hold a full member (got "
-                f"n_seeds={n_seeds})")
+                f"n_seeds={n_seeds}); dense tails are what engine='cuda' "
+                f"and engine='torch' are for")
     budget = resolve_ensemble_budget(base) if budget_w is None else float(budget_w)
     probes: List[PlanPoint] = []
 
@@ -190,3 +193,26 @@ def plan_capacity(base: Scenario, *,
         else:
             hi = mid
     return PlanResult(base.name, n_prov, budget, lo, probes)
+
+
+def plan_scenarios(bases: Sequence[Scenario], *,
+                   constraints: RiskConstraints = RiskConstraints(),
+                   n_seeds: int = 4, seed0: int = 1000,
+                   max_added_frac: float = 0.60,
+                   budget_w: Optional[float] = None,
+                   engine: str = "cuda", device=None,
+                   **engine_opts) -> Dict[str, PlanResult]:
+    """Per-scenario safe oversubscription ratios for a generator family, all
+    planned against the same power envelope (resolved from the first base
+    unless pinned): how far the envelope stretches under nominal, bursty,
+    colocated, failover, incident and nighttime traffic. ``engine``,
+    ``device`` and ``engine_opts`` forward to :func:`plan_capacity`."""
+    if not bases:
+        return {}
+    budget = (resolve_ensemble_budget(bases[0]) if budget_w is None
+              else float(budget_w))
+    return {b.name: plan_capacity(b, constraints=constraints, n_seeds=n_seeds,
+                                  seed0=seed0, max_added_frac=max_added_frac,
+                                  budget_w=budget, engine=engine,
+                                  device=device, **engine_opts)
+            for b in bases}

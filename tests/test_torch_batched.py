@@ -1,15 +1,19 @@
-"""The port's slice end to end, on ``device="cpu"``, against the JAX package.
+"""The port's planner path end to end, on ``device="cpu"``, against the JAX
+package.
 
-* The engine (``engine="cuda"``, which takes the kernel's plain version on
-  CPU tensors) against the numpy tick oracle that drives the real policy
-  objects, on the *same* model: lowered by the JAX package and carried
-  across by ``TickModel.from_numpy``. The contract is DESIGN.md §15's:
-  brake-tick sets and counts bit-identical, power series within 1e-6
-  relative, SLO impacts within 1e-6 (atol 1e-9).
-* ``EnsembleResult`` statistics against JAX
-  ``run_ensemble(engine="batched-numpy")``.
-* ``plan_capacity`` decisions against JAX
-  ``plan_capacity(engine="batched-numpy")``.
+* ``engine="cuda"`` (which takes the kernel's plain version on CPU tensors)
+  against the numpy tick oracle that drives the real policy objects, on the
+  *same* model: lowered by the JAX package and carried across by
+  ``TickModel.from_numpy``.
+* ``engine="torch"`` (the scan engine) against the same oracle, the port
+  lowering the scenario itself: every generator family under ``polca`` and
+  ``polca-predictive``, predictive brakes that fire, the hierarchy node
+  fold, fault timelines (the cases of tests/test_batched_parity.py).
+
+The contract is DESIGN.md §15's: brake-tick sets and counts bit-identical,
+power series within 1e-6 relative, SLO impacts within 1e-6 (atol 1e-9).
+``EnsembleResult`` statistics and ``plan_capacity`` decisions are held
+against JAX's ``engine="batched-numpy"`` on both engines.
 """
 
 import dataclasses
@@ -37,6 +41,7 @@ from repro_torch.provisioning import (
     EnsembleSpec,
     RiskConstraints,
     TickModel,
+    lower_ensemble,
     plan_capacity,
     run_ensemble,
     run_tick_model,
@@ -107,14 +112,7 @@ def test_predictive_policy_is_rejected():
                      device="cpu")
 
 
-@pytest.mark.parametrize("generator", ["diurnal", "bursty", "failover-surge"])
-def test_ensemble_statistics_match_jax(generator):
-    sc = parity_scenario(generator=generator, occ_peak=0.97,
-                         power_scale=1.12, duration_s=HALF_HOUR)
-    want = jax_run_ensemble(JaxEnsembleSpec(sc, n_seeds=4, seed0=5),
-                            engine="batched-numpy")
-    got = run_ensemble(EnsembleSpec(_port_scenario(sc), n_seeds=4, seed0=5),
-                       engine="cuda", device="cpu")
+def _assert_statistics_match(got, want):
     assert got.budget_w == want.budget_w
     np.testing.assert_array_equal(got.brake_counts, want.brake_counts)
     np.testing.assert_array_equal(got.power_t, want.power_t)
@@ -136,6 +134,29 @@ def test_ensemble_statistics_match_jax(generator):
     for k in sw:
         np.testing.assert_allclose(sg[k], sw[k], rtol=PARITY_POWER_RTOL,
                                    atol=1e-9, err_msg=k)
+
+
+@pytest.mark.parametrize("generator", ["diurnal", "bursty", "failover-surge"])
+def test_ensemble_statistics_match_jax(generator):
+    sc = parity_scenario(generator=generator, occ_peak=0.97,
+                         power_scale=1.12, duration_s=HALF_HOUR)
+    want = jax_run_ensemble(JaxEnsembleSpec(sc, n_seeds=4, seed0=5),
+                            engine="batched-numpy")
+    got = run_ensemble(EnsembleSpec(_port_scenario(sc), n_seeds=4, seed0=5),
+                       engine="cuda", device="cpu")
+    _assert_statistics_match(got, want)
+
+
+@pytest.mark.parametrize("generator", ["diurnal", "bursty"])
+def test_torch_ensemble_statistics_match_jax_predictive(generator):
+    sc = parity_scenario(generator=generator, occ_peak=0.98,
+                         power_scale=1.2, duration_s=HALF_HOUR,
+                         policy="polca-predictive")
+    want = jax_run_ensemble(JaxEnsembleSpec(sc, n_seeds=4, seed0=5),
+                            engine="batched-numpy")
+    got = run_ensemble(EnsembleSpec(_port_scenario(sc), n_seeds=4, seed0=5),
+                       engine="torch", device="cpu")
+    _assert_statistics_match(got, want)
 
 
 def test_dense_tail_mode_matches_member_objects():
@@ -180,6 +201,114 @@ def test_planner_decisions_identical_to_jax():
         np.testing.assert_allclose(pg.slo_cvar, pw.slo_cvar, rtol=1e-6)
         np.testing.assert_allclose(pg.peak_frac_max, pw.peak_frac_max,
                                    rtol=PARITY_POWER_RTOL)
+
+
+def test_torch_planner_decisions_identical_to_jax_predictive():
+    """plan_capacity(engine="torch") on a predictive scenario: the same
+    safe_added_servers and per-probe verdicts as JAX batched-numpy."""
+    sc = parity_scenario(occ_peak=0.95, power_scale=1.2,
+                         duration_s=HALF_HOUR, n_provisioned=10,
+                         added_frac=0.0, policy="polca-predictive")
+    gate = dict(max_brakes=0, max_slo_violation_prob=1.0, slo_cvar_alpha=0.5,
+                max_slo_cvar=2.0, slo_cvar_priority="low")
+    want = jax_plan_capacity(sc, n_seeds=4, seed0=42, engine="batched-numpy",
+                             constraints=JaxRiskConstraints(**gate),
+                             max_added_frac=0.4)
+    got = plan_capacity(_port_scenario(sc), n_seeds=4, seed0=42,
+                        engine="torch", device="cpu",
+                        constraints=RiskConstraints(**gate),
+                        max_added_frac=0.4)
+    assert len(got.probes) >= 3
+    assert got.safe_added_servers == want.safe_added_servers
+    assert [(p.added_servers, p.feasible) for p in got.probes] == \
+        [(p.added_servers, p.feasible) for p in want.probes]
+    for pg, pw in zip(got.probes, want.probes):
+        assert pg.brake_prob == pw.brake_prob
+        np.testing.assert_allclose(pg.slo_cvar, pw.slo_cvar, rtol=1e-6)
+
+
+def _torch_and_oracle(sc, *, n_seeds=2, seed0=1000):
+    """The JAX package lowers ``sc`` and runs its numpy tick oracle; the
+    port lowers the same scenario itself and runs engine="torch" on the
+    CPU."""
+    model, members, _ = jax_lower_ensemble(
+        JaxEnsembleSpec(sc, n_seeds=n_seeds, seed0=seed0))
+    oracle = jax_run_tick_model(model, members, engine="numpy")
+    port_model, _, _ = lower_ensemble(
+        EnsembleSpec(_port_scenario(sc), n_seeds=n_seeds, seed0=seed0))
+    return oracle, run_tick_model(port_model, engine="torch", device="cpu")
+
+
+@pytest.mark.parametrize("policy", ["polca", "polca-predictive"])
+@pytest.mark.parametrize("generator", PARITY_GENERATORS)
+def test_torch_engine_matches_numpy_oracle(generator, policy):
+    sc = parity_scenario(generator=generator, occ_peak=0.97,
+                         power_scale=1.15, duration_s=HALF_HOUR,
+                         policy=policy)
+    oracle, port = _torch_and_oracle(sc, seed0=11)
+    assert port.engine == "torch"
+    assert_engine_parity(oracle, port)
+
+
+def test_torch_predictive_brakes_actually_fire_and_match():
+    """At power_scale=1.30 the predictive policy must brake (brakes are
+    never predicted), and the brake-tick sets match the oracle bit for
+    bit. On a cooler scenario its early caps change the power series from
+    the reactive policy's, so the slope window is exercised."""
+    sc = parity_scenario(occ_peak=0.99, power_scale=1.30,
+                         duration_s=HALF_HOUR, policy="polca-predictive")
+    oracle, port = _torch_and_oracle(sc)
+    assert oracle.n_brakes.sum() > 0, "scenario failed to exercise brakes"
+    np.testing.assert_array_equal(port.brake_ticks(), oracle.brake_ticks())
+    assert_engine_parity(oracle, port)
+    runs = [_torch_and_oracle(parity_scenario(
+        occ_peak=0.95, power_scale=1.1, duration_s=HALF_HOUR, policy=pol))
+        for pol in ("polca", "polca-predictive")]
+    assert not np.array_equal(runs[0][1].row_w, runs[1][1].row_w)
+    assert_engine_parity(*runs[1])
+
+
+@pytest.mark.parametrize("shape,generator,policy", [
+    ((2, 2), "diurnal", "polca"),
+    ((2, 3), "bursty", "polca-predictive"),
+    ((3, 2), "colocated", "polca"),
+])
+def test_torch_hierarchy_node_fold_matches_oracle(shape, generator, policy):
+    """The node fold of a lowered hierarchy matches the oracle, and the
+    site fold conserves the row total."""
+    sc = parity_scenario(generator=generator, n_rows=shape[0] * shape[1],
+                         occ_peak=0.93, duration_s=HALF_HOUR, policy=policy,
+                         hierarchy=HierarchySpec(shape=shape,
+                                                 budget_fracs={"0": 0.85}))
+    oracle, port = _torch_and_oracle(sc, seed0=3)
+    assert_engine_parity(oracle, port)
+    site = port.model.node_names.index("site")
+    np.testing.assert_allclose(port.node_w[:, :, site],
+                               port.row_w.sum(axis=2), rtol=1e-9)
+
+
+@pytest.mark.parametrize("factor,t_fault,ramp,policy", [
+    (0.6, 600, True, "polca"),
+    (0.8, 250, False, "polca-predictive"),
+    (0.5, 1000, True, "polca-predictive"),
+])
+def test_torch_fault_timeline_matches_oracle(factor, t_fault, ramp, policy):
+    """Interior derates with and without a ramp, a row crash and revive,
+    and site demand response, lowered by the port."""
+    faults = FaultSpec((
+        FaultEvent("node-derate", t=float(t_fault), node="pdu1",
+                   factor=factor, until=float(t_fault + 600),
+                   ramp_s=120.0 if ramp else 0.0),
+        FaultEvent("row-crash", t=300.0, row=1),
+        FaultEvent("row-revive", t=900.0, row=1),
+        FaultEvent("site-demand-response", t=1200.0, factor=0.9,
+                   until=1600.0),
+    ))
+    sc = parity_scenario(n_rows=4, occ_peak=0.95, power_scale=1.15,
+                         duration_s=HALF_HOUR, policy=policy,
+                         hierarchy=HierarchySpec(shape=(2, 2)), faults=faults)
+    oracle, port = _torch_and_oracle(sc, seed0=t_fault)
+    assert_engine_parity(oracle, port)
 
 
 def test_planner_rejects_survivability_gate():

@@ -2,9 +2,14 @@
 
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
   anything of the JAX package ``repro`` (an AST scan, so imports inside
-  functions count too).
+  functions count too), the port's copies of ``core/hierarchy.py`` and
+  ``chaos/faults.py`` included.
+* A scenario the JAX package serializes with a hierarchy and a fault
+  timeline loads in the port; ``routing``, ``controller`` and ``alerts``
+  still raise.
 * Entry points run on the CUDA card unless the caller passes
-  ``device="cpu"``: without CUDA they raise instead of falling back.
+  ``device="cpu"``: without CUDA they raise instead of falling back, on both
+  batched engines; ``resolve_devices`` refuses a card that does not exist.
 * ``ops.polca_tick``, ``ops.flash_attention`` and ``ops.decode_attention``
   take the plain version for CPU tensors without touching the kernels'
   launch counters; the kernel wrappers refuse CPU tensors.
@@ -27,7 +32,14 @@ from repro_torch.experiments.scenario import FleetSpec, Scenario, TrafficSpec
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import decode_attention, flash_attention, ops, tick
 from repro_torch.launch import serve
-from repro_torch.provisioning import EnsembleSpec, plan_capacity, run_ensemble
+from repro_torch.device import resolve_devices
+from repro_torch.provisioning import (
+    EnsembleSpec,
+    plan_capacity,
+    plan_scenarios,
+    run_ensemble,
+    run_ensemble_grid,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -65,7 +77,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         run_ensemble(_small_spec(), device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         plan_capacity(_small_spec().base)
+    for call in (lambda: run_ensemble(_small_spec(), engine="torch"),
+                 lambda: run_ensemble(_small_spec(), engine="torch",
+                                      devices=["cuda:0"]),
+                 lambda: run_ensemble_grid([_small_spec().base], n_seeds=2),
+                 lambda: plan_scenarios([_small_spec().base],
+                                        engine="torch")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     res = run_ensemble(_small_spec(), device="cpu")
+    assert res.n_members == 2
+    res = run_ensemble(_small_spec(), engine="torch", device="cpu")
     assert res.n_members == 2
     cfg = smoke_config("llama3.2-1b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -161,3 +183,64 @@ def test_chip_smoke_checks_the_kernel_test_shapes():
                                 for c in cases]
     assert smoke.FLASH_CASES == by_name(FLASH_CASES, 6)
     assert smoke.DECODE_CASES == DECODE_CASES
+
+
+def test_copied_numpy_modules_are_scanned():
+    rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/hierarchy.py",
+            "src/repro_torch/chaos/faults.py",
+            "src/repro_torch/chaos/__init__.py"} <= rel
+
+
+def test_jax_scenario_with_hierarchy_and_faults_loads():
+    """A scenario serialized by the JAX package with a HierarchySpec and a
+    FaultSpec loads in the port with both fields and serializes back to the
+    same dict; the still-unported fields raise."""
+    from conftest import parity_scenario
+    from repro.chaos.faults import FaultEvent as JaxFaultEvent
+    from repro.experiments.scenario import HierarchySpec as JaxHierarchySpec
+    from repro_torch.chaos import FaultEvent, FaultSpec
+    from repro_torch.experiments.scenario import HierarchySpec
+
+    jax_sc = parity_scenario(n_rows=6, duration_s=1800.0, hierarchy=JaxHierarchySpec(
+        shape=(2, 3), level_names=("site", "rack"), budget_fracs={"1": 0.9}),
+        faults=[JaxFaultEvent("row-crash", t=60.0, row=2),
+                JaxFaultEvent("node-derate", t=90.0, node="rack1",
+                              factor=0.5, until=400.0, ramp_s=30.0)])
+    sc = Scenario.from_dict(jax_sc.to_dict())
+    assert sc.to_dict() == jax_sc.to_dict()
+    assert isinstance(sc.hierarchy, HierarchySpec) and sc.hierarchy.n_rows == 6
+    assert isinstance(sc.faults, FaultSpec)
+    assert sc.faults.events[1] == FaultEvent("node-derate", t=90.0,
+                                             node="rack1", factor=0.5,
+                                             until=400.0, ramp_s=30.0)
+    again = sc.with_hierarchy((3, 2)).with_faults(None)
+    assert again.fleet.n_rows == 6 and again.faults is None
+    for field, value in (("routing", {"router": "jsq"}),
+                         ("controller", {"kind": "static"}), ("alerts", [])):
+        d = jax_sc.to_dict()
+        d[field] = value
+        with pytest.raises(NotImplementedError, match=field):
+            Scenario.from_dict(d)
+    with pytest.raises(ValueError, match="unknown kind"):
+        FaultSpec(({"kind": "meteor", "t": 1.0},))
+
+
+def test_resolve_devices(monkeypatch):
+    """resolve_devices resolves each entry like resolve_device, names a bare
+    'cuda' by the current card, and raises for a card that does not exist,
+    an empty sequence, or a single device passed as a sequence."""
+    assert resolve_devices(["cpu", "cpu"]) == [torch.device("cpu")] * 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_devices(["cuda:0"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_devices(["cuda", "cuda:0"]) == [
+        torch.device("cuda", 1), torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="does not exist"):
+        resolve_devices(["cuda:0", "cuda:2"])
+    with pytest.raises(ValueError, match="empty"):
+        resolve_devices([])
+    with pytest.raises(TypeError, match="sequence"):
+        resolve_devices("cpu")
