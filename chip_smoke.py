@@ -13,6 +13,11 @@ kernels:
 * the capacity planner's path: ``run_ensemble`` over a 10^5-member dense
   tail of the repo's dense-tail bench scenario, then a ``plan_capacity``
   bisection on 1024-member probes (the tick kernel);
+* the calibrated planner family (phase 5a): the six ``mc-*`` budgets
+  calibrated on the event-driven simulator, ``plan_scenarios`` over the
+  family at 1024 seeds on the tick kernel (one launch a probe), a torch
+  grid against the CUDA engine, and the event-driven engine's fork pool
+  (``engine="numpy"``) beside the CUDA engine;
 * the torch scan engine (``engine="torch"``, PyTorch code, no kernel of
   its own): (a) against the CUDA engine on that 10^5-member model, (b) the
   predictive policy's 10^5-member tail through ``run_ensemble`` and its
@@ -92,6 +97,7 @@ TICK_EDGE_CASES = [
 ROW_W_RTOL = 1e-6  # the oracle contract's power tolerance (DESIGN.md §15)
 
 MAIN_MEMBERS = 100_000  # benchmarks/batched_engine.py's full-mode tail
+CPU_CHECK_MEMBERS = 10_000  # members of the main path held against the CPU
 PLAN_SEEDS = 1024
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate
@@ -991,6 +997,237 @@ def torch_planner(cons) -> None:
         f"{len(plan.probes)} probes in {plan_s:.2f} s; probes {verdicts}")
 
 
+# ---------------------------------------------------------------------------
+# the calibrated planner family: the paper's mc-* scenarios under the
+# envelope calibrated on the event-driven simulator
+# ---------------------------------------------------------------------------
+
+FAMILY_SEEDS = 1024  # members a probe
+FAMILY_SEED0 = 1000  # benchmarks/capacity_planning.py's seed0
+FAMILY_GRID_S = 3600.0  # the torch-vs-cuda grid's horizon (the torch loop is host-bound)
+FAMILY_NUMPY_SEEDS = 16  # the event-driven engine's timing run
+FAMILY_ONE_WORKER_SEEDS = 4  # its first members, rerun on one worker
+
+
+@contextlib.contextmanager
+def per_call(module, name: str):
+    """Record ``(scenario name, wall seconds, tick launches)`` for every call
+    of ``module.name(base, ...)`` made inside the block (card work included);
+    yields the list."""
+    import torch
+    real = getattr(module, name)
+    calls = []
+
+    def wrapped(base, *args, **kwargs):
+        torch.cuda.synchronize()
+        n0, t0 = counts()["polca_tick"], time.perf_counter()
+        try:
+            return real(base, *args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            calls.append((base.name, time.perf_counter() - t0,
+                          counts()["polca_tick"] - n0))
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def kept_runs(batched):
+    """Keep the BatchedRun behind every EnsembleResult made inside the block,
+    by engine and scenario name (its brake-tick set included)."""
+    real = batched._to_ensemble_result
+    runs = {}
+
+    def keep(model, members, budget_w, run, member_stats=True):
+        runs.setdefault(run.engine, {})[model.base_name] = run
+        return real(model, members, budget_w, run, member_stats=member_stats)
+
+    batched._to_ensemble_result = keep
+    try:
+        yield runs
+    finally:
+        batched._to_ensemble_result = real
+
+
+def calibrated_planner_family(dev) -> int:
+    """The six mc-* scenarios at their registered size (12 h, 40 provisioned
+    servers, one row): (1) their calibrated budgets on the host, (2)
+    plan_scenarios at FAMILY_SEEDS seeds on engine="cuda" under the
+    mc-diurnal envelope, one tick launch a probe, (3) one torch-engine grid
+    over the family at the diurnal plan's safe size, cut to FAMILY_GRID_S,
+    against engine="cuda" per scenario, (4) the event-driven engine against
+    engine="cuda" at FAMILY_NUMPY_SEEDS seeds. Returns the planner's tick
+    launches."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.experiments.scenario import get_scenario
+    from repro_torch.provisioning import batched, montecarlo, planner
+    from repro_torch.provisioning.ensembles import MC_BASE_NAME, MC_SCENARIO_FAMILY
+    from repro_torch.provisioning.montecarlo import (
+        EnsembleSpec, resolve_ensemble_budget, run_ensemble, run_ensemble_grid)
+
+    bases = [get_scenario(name) for name in MC_SCENARIO_FAMILY]
+    n_prov = bases[0].fleet.n_provisioned
+    n_ticks = int(bases[0].duration_s / bases[0].telemetry.telemetry_s)
+    budgets = {}
+    for sc in bases:
+        t0 = time.perf_counter()
+        budgets[sc.name] = resolve_ensemble_budget(sc)
+        say(f"calibrated planner family: budget {sc.name} = "
+            f"{budgets[sc.name]!r} W, resolved in "
+            f"{time.perf_counter() - t0:.3f} s on the host")
+    envelope = budgets[MC_BASE_NAME]
+
+    # (2) the planner over the family on the tick kernel
+    reset_counts()
+    with per_call(planner, "plan_capacity") as plans_s, \
+            timed_calls(batched, "lower_ensemble") as lower_s, \
+            timed_calls(batched, "_run_models") as engine_s, \
+            timed_calls(batched.kops, "polca_tick") as tick_s, \
+            timed_calls(batched, "_slo_impacts") as slo_s:
+        t0 = time.perf_counter()
+        plans = planner.plan_scenarios(bases, n_seeds=FAMILY_SEEDS,
+                                       seed0=FAMILY_SEED0, budget_w=envelope,
+                                       engine="cuda")
+        total_s = time.perf_counter() - t0
+    launches = counts()["polca_tick"]
+    n_probes = sum(len(p.probes) for p in plans.values())
+    for (name, s, n), p in zip(plans_s, plans.values()):
+        if name != p.scenario_name or n != len(p.probes) or p.budget_w != envelope:
+            raise AssertionError(f"{name}: {n} tick launches for "
+                                 f"{len(p.probes)} probes, budget {p.budget_w}")
+        verdicts = ", ".join(
+            f"+{q.added_servers}:{'ok' if q.feasible else 'no'}"
+            f"(brake_p={q.brake_prob:.4f}, slo_p={q.slo_violation_prob:.4f})"
+            for q in p.probes)
+        say(f"calibrated planner family: plan_capacity {name} "
+            f"({FAMILY_SEEDS} seeds, T={n_ticks}, engine='cuda'): "
+            f"safe_added_servers={p.safe_added_servers} "
+            f"(+{p.safe_added_frac:.1%}{', capped' if p.capped else ''}"
+            f"{'' if p.feasible_at_zero else ', infeasible at 0'}), "
+            f"{len(p.probes)} probes in {s:.2f} s; tick kernel launches {n}; "
+            f"probes {verdicts}")
+    if launches != n_probes:
+        raise AssertionError(f"{launches} tick launches for {n_probes} probes")
+    rest_s = total_s - lower_s[0] - engine_s[0]
+    say(f"calibrated planner family: plan_scenarios over {len(plans)} "
+        f"scenarios in {total_s:.2f} s, {n_probes} probes = "
+        f"{total_s / n_probes:.3f} s a probe: lowering {lower_s[0]:.2f} s, "
+        f"device engine {engine_s[0]:.2f} s (of which tick kernel calls "
+        f"{tick_s[0]:.2f} s, SLO proxy loop {slo_s[0]:.2f} s), the rest "
+        f"{rest_s:.2f} s; outside the tick kernel "
+        f"{100 * (total_s - tick_s[0]) / total_s:.1f} %; tick kernel "
+        f"launches {launches}")
+
+    # (3) the torch engine's grid against the CUDA engine at the diurnal
+    # plan's safe size
+    safe = plans[MC_BASE_NAME].safe_added_servers
+    grid_bases = [b.with_fleet(added_frac=safe / n_prov)
+                  .with_(duration_s=FAMILY_GRID_S) for b in bases]
+    with kept_runs(batched) as runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        grid = run_ensemble_grid(grid_bases, n_seeds=FAMILY_SEEDS,
+                                 seed0=FAMILY_SEED0, budget_w=envelope,
+                                 engine="torch")
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        check_no_tick_launch("run_ensemble_grid(engine='torch')")
+        t0 = time.perf_counter()
+        cuda = {b.name: run_ensemble(EnsembleSpec(b, n_seeds=FAMILY_SEEDS,
+                                                  seed0=FAMILY_SEED0),
+                                     budget_w=envelope, engine="cuda")
+                for b in grid_bases}
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+    if counts()["polca_tick"] != len(grid_bases):
+        raise AssertionError(f"engine='cuda' launched {counts()}")
+    brakes, power_rel, impact_abs = [], 0.0, 0.0
+    for b in grid_bases:
+        tr, cu = runs["torch"][b.name], runs["cuda"][b.name]
+        if tr.brake_fire is None or cu.brake_fire is None:
+            raise AssertionError(f"{b.name}: a brake-tick set was not kept")
+        gap = compare_runs(tr, cu, f"family grid {b.name} torch vs cuda")
+        g, c = grid[b.name], cuda[b.name]
+        for stat in ("n_members", "budget_w"):
+            if getattr(g, stat) != getattr(c, stat):
+                raise AssertionError(f"{b.name}: {stat} differs")
+        if not np.array_equal(g.brake_counts, c.brake_counts):
+            raise AssertionError(f"{b.name}: brake counts differ")
+        for stat in (lambda r: r.brake_prob(), lambda r: r.brake_cvar(0.9),
+                     lambda r: r.meets_fraction(),
+                     lambda r: r.slo_violation_prob()):
+            if stat(g) != stat(c):
+                raise AssertionError(f"{b.name}: ensemble statistics differ")
+        for name in ("peak_fracs", "mean_fracs"):
+            np.testing.assert_allclose(getattr(g, name), getattr(c, name),
+                                       rtol=ROW_W_RTOL, err_msg=name)
+        brakes.append(gap["brakes"])
+        power_rel = max(power_rel, gap["power_rel"])
+        impact_abs = max(impact_abs, gap["impact_abs"])
+    say(f"calibrated planner family: torch grid vs cuda at +{safe} servers, "
+        f"{len(grid_bases)} scenarios x {FAMILY_SEEDS} members, "
+        f"T={int(FAMILY_GRID_S / bases[0].telemetry.telemetry_s)}: one "
+        f"run_ensemble_grid(engine='torch') {grid_s:.2f} s, "
+        f"{len(grid_bases)} run_ensemble(engine='cuda') {cuda_s:.2f} s; "
+        f"brake-tick sets and counts bit-identical (brakes {brakes}), "
+        f"brake_prob/CVaR/meets/slo_violation_prob equal, power max rel gap "
+        f"{power_rel:.3e}, SLO impacts max abs gap {impact_abs:.3e}")
+
+    # (4) the event-driven engine (host, fork pool) against the CUDA engine
+    spec = EnsembleSpec(bases[0].with_fleet(added_frac=safe / n_prov),
+                        n_seeds=FAMILY_NUMPY_SEEDS, seed0=FAMILY_SEED0)
+    workers = montecarlo._default_workers(FAMILY_NUMPY_SEEDS, None)
+    if workers < 2:
+        raise AssertionError(f"{workers} worker(s): the fork pool is not run")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        ev = run_ensemble(spec, budget_w=envelope, engine="numpy")
+        numpy_s = time.perf_counter() - t0
+    inline = [w for w in caught if "process pool unavailable" in str(w.message)]
+    if inline:
+        raise AssertionError(f"the fork pool did not run: {inline[0].message}")
+    # members are independent, so the first ones rerun on one worker must
+    # equal the pool's
+    k = FAMILY_ONE_WORKER_SEEDS
+    t0 = time.perf_counter()
+    ev1 = run_ensemble(dataclasses.replace(spec, n_seeds=k, n_workers=1),
+                       budget_w=envelope, engine="numpy")
+    numpy1_s = time.perf_counter() - t0
+    for name in ("brake_counts", "peak_fracs", "mean_fracs", "power_frac"):
+        if not np.array_equal(getattr(ev, name)[:k], getattr(ev1, name)):
+            raise AssertionError(f"event-driven engine: {name} differs "
+                                 f"between {workers} workers and 1")
+    if [m.result.latencies for m in ev.members[:k]] != \
+            [m.result.latencies for m in ev1.members]:
+        raise AssertionError("event-driven engine: latencies differ between "
+                             f"{workers} workers and 1")
+    reset_counts()
+    t0 = time.perf_counter()
+    cu = run_ensemble(spec, budget_w=envelope, engine="cuda")
+    torch.cuda.synchronize()
+    cu_s = time.perf_counter() - t0
+    if counts()["polca_tick"] != 1:
+        raise AssertionError(f"engine='cuda' launched {counts()}")
+    say(f"calibrated planner family: mc-diurnal at +{safe} servers, "
+        f"{spec.base.duration_s / 3600:g} h, "
+        f"{FAMILY_NUMPY_SEEDS} seeds: event-driven engine='numpy' "
+        f"{numpy_s:.2f} s on {workers} fork workers = "
+        f"{FAMILY_NUMPY_SEEDS / numpy_s:.2f} members/s (its first {k} on 1 "
+        f"worker {numpy1_s:.2f} s, bit-identical), engine='cuda' {cu_s:.3f} s = "
+        f"{FAMILY_NUMPY_SEEDS / cu_s:.1f} members/s "
+        f"(ratio {numpy_s / cu_s:.1f}); brake_prob numpy {ev.brake_prob():.4f} "
+        f"/ cuda {cu.brake_prob():.4f}, peak max numpy "
+        f"{ev.peak_fracs.max():.4f} / cuda {cu.peak_fracs.max():.4f}")
+    return launches
+
+
 def main() -> int:
     global CARD
     import numpy as np
@@ -1102,22 +1339,27 @@ def main() -> int:
                           device=dev)
     torch.cuda.synchronize()
     engine_ms = (time.perf_counter() - t0) * 1e3
+    # the plain path on the CPU over the model's first CPU_CHECK_MEMBERS
+    # members (members are independent lanes)
+    k = CPU_CHECK_MEMBERS
+    head = dataclasses.replace(model, n_members=k, occ60=model.occ60[:k],
+                               seeds=model.seeds[:k])
     t0 = time.perf_counter()
-    cpu = run_tick_model(model, keep_series=False, keep_brake_fire=False,
+    cpu = run_tick_model(head, keep_series=False, keep_brake_fire=False,
                          device="cpu")
     cpu_s = time.perf_counter() - t0
-    if not np.array_equal(card.n_brakes, cpu.n_brakes):
+    if not np.array_equal(card.n_brakes[:k], cpu.n_brakes):
         raise AssertionError("main path: brake counts differ card vs CPU")
     for name in ("peak_frac", "mean_frac", "impacts_hp", "impacts_lp"):
-        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name),
+        np.testing.assert_allclose(getattr(card, name)[:k], getattr(cpu, name),
                                    rtol=ROW_W_RTOL, atol=1e-9, err_msg=name)
     rest_ms = engine_ms - occ_ms - tick_ms - slo_ms - copy_ms
     print(f"device engine at the main shape: {engine_ms:.1f} ms (occupancy "
           f"{occ_ms:.1f} ms, tick kernel {tick_ms:.2f} ms, SLO proxy "
           f"{slo_ms:.1f} ms, copying its impact planes to the host "
           f"{copy_ms:.1f} ms, the rest {rest_ms:.1f} ms: row sums, small "
-          f"copies, allocation); the plain path on "
-          f"the CPU ({cpu_s:.1f} s): brake counts identical "
+          f"copies, allocation); the plain path on the CPU over its first "
+          f"{k} members ({cpu_s:.1f} s): brake counts identical "
           f"({int(cpu.n_brakes.sum())} brakes), peak/mean fractions and SLO "
           f"impacts within {ROW_W_RTOL}")
     del card, cpu
@@ -1192,6 +1434,9 @@ def main() -> int:
           f"safe_added_servers={plan.safe_added_servers} in {plan_s:.2f} s; "
           f"probes {verdicts}; tick kernel launches {plan_launches}")
 
+    # 5a. the calibrated planner family (mc-*) at its registered size
+    family_launches = calibrated_planner_family(dev)
+
     # 5b-f. the torch scan engine: the predictive tail, the grid, chunk and
     # shard invariance, faults and the hierarchy, the predictive planner
     predictive_tail(dev, sc)
@@ -1215,6 +1460,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/tick.cu",
         "replaces": "src/repro/kernels/tick.py:211",
         "launches": main_launches,
+        "family_launches": family_launches,
         "max_abs_err": tick_abs,
         "ms": tick_ms,
         "call_ms": tick_call_ms,

@@ -47,6 +47,21 @@ class LatencyStats:
         }
 
 
+def impact_vs_reference(latencies: Dict[int, float],
+                        ref_latencies: Dict[int, float],
+                        priorities: Dict[int, str]) -> "LatencyStats":
+    """Per-request latency impact of a policy run vs the uncapped reference
+    run on the same trace (the paper's comparison in §6). Requests missing
+    from either run (dropped) are skipped."""
+    st = LatencyStats()
+    for rid, lat in latencies.items():
+        ref = ref_latencies.get(rid)
+        if ref is None or ref <= 0:
+            continue
+        st.add(priorities[rid], lat, ref)
+    return st
+
+
 def meets_slo(stats: LatencyStats, n_powerbrakes: int, slo: SLO = DEFAULT_SLO) -> bool:
     s = stats.summary()
     return (s["hp_p50"] < slo.hp_p50 and s["hp_p99"] < slo.hp_p99

@@ -68,3 +68,11 @@ class TelemetryPolicy:
     def step(self, p: float) -> List:
         return self.observe(Telemetry.from_power_frac(p))
 
+
+def dispatch(policy, tel: Telemetry) -> List:
+    """Feed a sample to either protocol: ``observe(Telemetry)`` when the
+    policy implements it, else the legacy ``step(p)``."""
+    observe = getattr(policy, "observe", None)
+    if observe is not None:
+        return observe(tel)
+    return policy.step(tel.power_frac)

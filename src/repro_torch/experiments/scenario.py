@@ -22,6 +22,7 @@ so benchmarks, tests and the CLI can share exact configurations by name.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -161,9 +162,8 @@ class Scenario:
     slo: SLO = DEFAULT_SLO
     power_scale: float = 1.0  # robustness runs: x1.05 = +5% workload power
     seed: int = 7
-    # row power budget: "calibrated" (Table-2 79%-peak operating point; needs
-    # the event-driven simulator, not ported yet), "nominal"
-    # (n_provisioned x server rating), or explicit watts
+    # row power budget: "calibrated" (Table-2 79%-peak operating point),
+    # "nominal" (n_provisioned x server rating), or explicit watts
     budget: Union[str, float] = "calibrated"
     compare_to_reference: bool = True  # diff latencies vs an uncapped run
     # subsystems not ported yet: each must stay None (see UNPORTED_FIELDS)
@@ -233,6 +233,13 @@ class Scenario:
             d["faults"] = FaultSpec.from_dict(d["faults"])
         return cls(**d)
 
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Scenario":
+        return cls.from_dict(json.loads(s))
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -260,10 +267,48 @@ def list_scenarios() -> List[str]:
     return sorted(_REGISTRY)
 
 
-# Named configurations shared with the JAX package's registry: the ones the
-# tick engine runs (POLCA policy, nominal budget). The figure scenarios wait
-# for calibrated budgets and the event-driven simulator; the fleet, site and
-# chaos families for their subsystems.
+# Named configurations shared with the JAX package's registry (the same
+# fields): the figure and table scenarios and the two cluster scenarios.
+# Benchmarks shorten durations with ``with_()``. The ``mc-*`` family
+# registers on ``import repro_torch.provisioning``; the fleet, rebalance,
+# site and chaos families wait for their subsystems.
+register_scenario(Scenario(
+    name="table2-baseline",
+    duration_s=WEEK,
+    policy=PolicySpec("no-cap"),
+    seed=11,
+    budget="nominal",
+    compare_to_reference=False,
+))
+register_scenario(Scenario(
+    name="fig13-search-base",
+    duration_s=WEEK / 2,
+    fleet=FleetSpec(added_frac=0.30),
+))
+register_scenario(Scenario(
+    name="fig14-plus30",
+    duration_s=WEEK / 2,
+    fleet=FleetSpec(added_frac=0.30),
+))
+register_scenario(Scenario(
+    name="fig16-six-week",
+    duration_s=6 * WEEK,
+    policy=PolicySpec("no-cap"),
+    traffic=TrafficSpec(occ_peak=0.97),
+    seed=23,
+    budget="nominal",
+    compare_to_reference=False,
+))
+register_scenario(Scenario(
+    name="fig17-comparison",
+    duration_s=WEEK / 2,
+    fleet=FleetSpec(added_frac=0.30),
+))
+register_scenario(Scenario(
+    name="quickstart-plus30",
+    duration_s=3 * 3600.0,
+    fleet=FleetSpec(added_frac=0.30),
+))
 register_scenario(Scenario(
     name="cluster-2rack",
     duration_s=DAY / 4,

@@ -1,10 +1,11 @@
 """Provisioning planner on the PyTorch port: trace-ensemble generators, the
 batched Monte-Carlo tick engines (the CUDA kernel and the torch scan
-engine), and the risk-constrained capacity search (port of
-``repro.provisioning``).
+engine), the event-driven Monte-Carlo engine on the host, and the
+risk-constrained capacity search (port of ``repro.provisioning``).
 
 Importing this package registers the scenario-family trace generators
-(bursty, colocated, failover-surge, rack-incident, nighttime).
+(bursty, colocated, failover-surge, rack-incident, nighttime) and the named
+``mc-*`` scenarios alongside the figure scenarios.
 """
 
 from repro_torch.provisioning.batched import (
@@ -18,6 +19,8 @@ from repro_torch.provisioning.batched import (
 )
 from repro_torch.provisioning.ensembles import (
     GENERATOR_FAMILY,
+    MC_BASE_NAME,
+    MC_SCENARIO_FAMILY,
     SiteTrace,
     compose_rows,
     compose_site,
@@ -29,6 +32,7 @@ from repro_torch.provisioning.montecarlo import (
     resolve_ensemble_budget,
     run_ensemble,
     run_ensemble_grid,
+    run_ensemble_sequential,
 )
 from repro_torch.provisioning.planner import (
     PlanPoint,
@@ -43,6 +47,8 @@ __all__ = [
     "EnsembleResult",
     "EnsembleSpec",
     "GENERATOR_FAMILY",
+    "MC_BASE_NAME",
+    "MC_SCENARIO_FAMILY",
     "MemberStats",
     "PlanPoint",
     "PlanResult",
@@ -59,6 +65,7 @@ __all__ = [
     "run_batched_grid",
     "run_ensemble",
     "run_ensemble_grid",
+    "run_ensemble_sequential",
     "run_tick_model",
     "run_tick_models",
 ]

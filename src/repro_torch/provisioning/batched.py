@@ -41,10 +41,10 @@ one device program (DESIGN.md §15-16):
 
 The oracle contract is the JAX package's: brake-tick sets bit-identical to
 the numpy tick oracle that drives the real policy objects, power series
-within 1e-6 relative. The event-driven engine waits for the port of the
-event-driven simulator; :meth:`TickModel.from_numpy` carries a model
-lowered by the JAX package across, so the tests hold both engines against
-that oracle on the same model.
+within 1e-6 relative. The event-driven engine (``engine="numpy"``) lives
+in :mod:`repro_torch.provisioning.montecarlo`; :meth:`TickModel.from_numpy`
+carries a model lowered by the JAX package across, so the tests hold both
+engines against that oracle on the same model.
 """
 
 from __future__ import annotations
@@ -955,8 +955,8 @@ def _check_engine(engine: str, member_chunk=None, devices=None) -> None:
             f"unknown batched engine {engine!r}: this port runs "
             f"engine='cuda' (the tick kernel, the JAX package's 'pallas' "
             f"counterpart) and engine='torch' (the scan engine, the JAX "
-            f"package's 'jax' counterpart); the event-driven engine is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 5)")
+            f"package's 'jax' counterpart); the event-driven engine "
+            f"engine='numpy' is run_ensemble's and run_ensemble_grid's")
     if engine == "cuda" and (member_chunk is not None or devices is not None):
         raise ValueError(
             "member_chunk and devices apply to engine='torch'; "

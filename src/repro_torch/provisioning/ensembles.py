@@ -15,19 +15,26 @@ under a correlation knob ``rho`` for multi-row scenarios.
 through a :class:`~repro_torch.core.hierarchy.PowerHierarchy`, preserving
 ``sum(rows) == rack`` / ``sum(racks) == site``.
 
-The named ``mc-*`` scenarios wait for calibrated budgets
-(``budget="calibrated"`` needs the event-driven simulator).
+Named Monte-Carlo scenarios (``mc-*``, :data:`MC_SCENARIO_FAMILY`)
+register alongside the Scenario registry on import.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.hierarchy import PowerHierarchy
 from repro_torch.core.traces import DAY, occupancy_curve, register_occupancy_generator
+from repro_torch.experiments.scenario import (
+    FleetSpec,
+    PolicySpec,
+    Scenario,
+    TrafficSpec,
+    register_scenario,
+)
 
 OCC_LO, OCC_HI = 0.05, 0.98  # same clip band as the diurnal baseline
 
@@ -242,3 +249,39 @@ def compose_site(row_w: np.ndarray, *, rows_per_rack: int = 2,
     return SiteTrace(row_w=row_w, rack_w=node_w[hierarchy.leaf_parents],
                      site_w=node_w[hierarchy.root], rack_of=rack_of,
                      node_w=node_w, node_names=hierarchy.names)
+
+
+# ---------------------------------------------------------------------------
+# named Monte-Carlo scenarios (registered alongside the figure scenarios)
+# ---------------------------------------------------------------------------
+
+MC_BASE_NAME = "mc-diurnal"
+MC_SCENARIO_FAMILY: List[str] = [
+    MC_BASE_NAME,
+    "mc-bursty",
+    "mc-colocated",
+    "mc-failover",
+    "mc-rack-incident",
+    "mc-nighttime",
+]
+
+
+def _mc_scenario(name: str, generator: str, **gen_params) -> Scenario:
+    return register_scenario(Scenario(
+        name=name,
+        duration_s=DAY / 2,
+        fleet=FleetSpec(n_provisioned=40, added_frac=0.0),
+        policy=PolicySpec("polca"),
+        traffic=TrafficSpec(occ_peak=0.62, generator=generator,
+                            gen_params=gen_params),
+        budget="calibrated",
+        compare_to_reference=False,
+    ), overwrite=True)
+
+
+_mc_scenario(MC_BASE_NAME, "diurnal")
+_mc_scenario("mc-bursty", "bursty")
+_mc_scenario("mc-colocated", "colocated")
+_mc_scenario("mc-failover", "failover-surge")
+_mc_scenario("mc-rack-incident", "rack-incident")
+_mc_scenario("mc-nighttime", "nighttime")

@@ -4,8 +4,8 @@ POLCA §7: with the T1/T2 controller, the same row power envelope safely
 hosts ~30% more inference servers. :func:`plan_capacity` turns that figure
 into a *search*: it bisects over the number of added servers, evaluating
 each candidate fleet with a Monte-Carlo ensemble of seeded traffic
-realizations on the tick engine, and keeps the largest fleet whose ensemble
-satisfies the risk constraints:
+realizations, and keeps the largest fleet whose ensemble satisfies the risk
+constraints:
 
 * ``max_brake_prob`` — bound on P[a traffic realization exceeds
   ``max_brakes`` hardware powerbrakes] (the paper plans for zero);
@@ -14,12 +14,19 @@ satisfies the risk constraints:
 * ``slo_cvar_alpha`` / ``max_slo_cvar`` — the dense-tail CVaR gate on the
   per-member SLO impact.
 
+SLO impacts are measured the way the paper measures them: each member diffs
+per-request latencies against an uncapped reference run on the same trace
+(``EnsembleSpec(with_reference=True)``; the batched engines' fluid proxy is
+reference-free), so the gate isolates capping impact from queueing noise.
 The budget is resolved once from the provisioned baseline and held fixed
 across candidates and members: the question is "how far can THIS envelope
-stretch". The survivability gate (``RiskConstraints.survive``) runs the
-routed fleet under a fault timeline and waits for the ports of the fleet
-and the chaos injector (the fault timelines themselves are ported:
-``Scenario.with_faults`` runs on both batched engines).
+stretch". Every probe is recorded so the frontier is auditable, and with a
+recorder installed (:mod:`repro_torch.obs.metrics`) each probe is a
+``planner/probe`` span, event and counter. The survivability gate
+(``RiskConstraints.survive``) runs the routed fleet under a fault timeline
+and waits for the ports of the fleet and the chaos injector (the fault
+timelines themselves are ported: ``Scenario.with_faults`` runs on both
+batched engines).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence
 from repro_torch.core.slo import DEFAULT_SLO, SLO
 from repro_torch.device import resolve_device
 from repro_torch.experiments.scenario import Scenario
+from repro_torch.obs.metrics import get_recorder
 from repro_torch.provisioning.montecarlo import (
     EnsembleResult,
     EnsembleSpec,
@@ -114,11 +122,20 @@ class PlanResult:
                 "n_probes": float(len(self.probes))}
 
 
+def _violation_prob(ens: EnsembleResult, slo: SLO) -> float:
+    """P[member misses the SLO], powerbrakes excluded (they are constrained
+    separately by ``max_brake_prob``). Delegates to the EnsembleResult so
+    dense-tail results (``member_stats=False``, no per-member python
+    objects) gate identically to member-object ones."""
+    return ens.slo_violation_prob(slo)
+
+
 def plan_capacity(base: Scenario, *,
                   constraints: RiskConstraints = RiskConstraints(),
                   n_seeds: int = 4, seed0: int = 1000,
                   max_added_frac: float = 0.60,
                   budget_w: Optional[float] = None,
+                  n_workers: Optional[int] = None,
                   keep_ensembles: bool = False,
                   engine: str = "cuda", device=None,
                   **engine_opts) -> PlanResult:
@@ -130,8 +147,10 @@ def plan_capacity(base: Scenario, *,
     ensemble at a pinned budget (resolved from ``base`` once unless
     ``budget_w`` pins it externally). ``engine`` and ``device`` select the
     ensemble backend per :func:`~repro_torch.provisioning.montecarlo.
-    run_ensemble` (``engine="torch"`` for predictive policies);
-    ``engine_opts`` forward there (``member_chunk``, ``devices``, ...).
+    run_ensemble` (``engine="torch"`` for predictive policies on the card;
+    ``engine="numpy"``, asked for by name, the event-driven host engine,
+    which takes ``n_workers`` and no device); ``engine_opts`` forward there
+    (``member_chunk``, ``devices``, ...).
     """
     if constraints.survive is not None:
         raise ValueError(
@@ -139,7 +158,8 @@ def plan_capacity(base: Scenario, *,
             "engine with the chaos injector (repro_torch.fleet): not ported "
             "to PyTorch yet, and the batched tick engines do not model it "
             f"(got engine={engine!r})")
-    device = resolve_device(device)
+    if engine != "numpy":
+        device = resolve_device(device)
     n_prov = base.fleet.n_provisioned
     cvar_alpha = constraints.slo_cvar_alpha
     if cvar_alpha is not None:
@@ -155,16 +175,19 @@ def plan_capacity(base: Scenario, *,
 
     def probe(k: int) -> PlanPoint:
         sc = base.with_fleet(added_frac=k / n_prov).with_(budget=budget)
-        ens = run_ensemble(EnsembleSpec(sc, n_seeds=n_seeds, seed0=seed0,
-                                        with_reference=True),
-                           budget_w=budget, engine=engine, device=device,
-                           **engine_opts)
-        brake_p = ens.brake_prob(constraints.max_brakes)
-        slo_p = ens.slo_violation_prob(constraints.slo)
-        cvar: Optional[float] = None
-        if cvar_alpha is not None:
-            cvar = ens.slo_cvar(constraints.slo_cvar_priority,
-                                cvar_alpha, q=constraints.slo_cvar_q)
+        rec = get_recorder()
+        with rec.span("planner/probe", scenario=base.name, added=k):
+            ens = run_ensemble(EnsembleSpec(sc, n_seeds=n_seeds, seed0=seed0,
+                                            n_workers=n_workers,
+                                            with_reference=True),
+                               budget_w=budget, engine=engine, device=device,
+                               **engine_opts)
+            brake_p = ens.brake_prob(constraints.max_brakes)
+            slo_p = _violation_prob(ens, constraints.slo)
+            cvar: Optional[float] = None
+            if cvar_alpha is not None:
+                cvar = ens.slo_cvar(constraints.slo_cvar_priority,
+                                    cvar_alpha, q=constraints.slo_cvar_q)
         pt = PlanPoint(
             added_servers=k, added_frac=k / n_prov,
             feasible=(brake_p <= constraints.max_brake_prob + _EPS
@@ -175,6 +198,16 @@ def plan_capacity(base: Scenario, *,
             peak_frac_max=float(ens.peak_fracs.max()) if len(ens.peak_fracs) else 0.0,
             slo_cvar=cvar, ensemble=ens if keep_ensembles else None)
         probes.append(pt)
+        if rec.enabled:
+            # probe outcome: logical time is the probe ordinal (the planner
+            # has no simulation clock of its own)
+            rec.event("planner", "probe", t=float(len(probes)),
+                      scenario=base.name, added=k,
+                      feasible=pt.feasible,
+                      brake_prob=round(brake_p, 6),
+                      slo_violation_prob=round(slo_p, 6))
+            rec.counter("planner_probes_total",
+                        outcome="feasible" if pt.feasible else "infeasible")
         return pt
 
     hi = max(1, int(math.floor(n_prov * max_added_frac)))
@@ -200,6 +233,7 @@ def plan_scenarios(bases: Sequence[Scenario], *,
                    n_seeds: int = 4, seed0: int = 1000,
                    max_added_frac: float = 0.60,
                    budget_w: Optional[float] = None,
+                   n_workers: Optional[int] = None,
                    engine: str = "cuda", device=None,
                    **engine_opts) -> Dict[str, PlanResult]:
     """Per-scenario safe oversubscription ratios for a generator family, all
@@ -213,6 +247,7 @@ def plan_scenarios(bases: Sequence[Scenario], *,
               else float(budget_w))
     return {b.name: plan_capacity(b, constraints=constraints, n_seeds=n_seeds,
                                   seed0=seed0, max_added_frac=max_added_frac,
-                                  budget_w=budget, engine=engine,
-                                  device=device, **engine_opts)
+                                  budget_w=budget, n_workers=n_workers,
+                                  engine=engine, device=device,
+                                  **engine_opts)
             for b in bases}

@@ -9,7 +9,12 @@
   still raise.
 * Entry points run on the CUDA card unless the caller passes
   ``device="cpu"``: without CUDA they raise instead of falling back, on both
-  batched engines; ``resolve_devices`` refuses a card that does not exist.
+  batched engines and on the calibrated ``mc-*`` scenarios;
+  ``resolve_devices`` refuses a card that does not exist. The event-driven
+  engine (``engine="numpy"``) runs on the host only when asked for by name
+  and refuses a device and the batched engines' options.
+* The port's scenario registry is the JAX package's without the routed
+  fleet, rebalancing, site and chaos families.
 * ``ops.polca_tick``, ``ops.flash_attention`` and ``ops.decode_attention``
   take the plain version for CPU tensors without touching the kernels'
   launch counters; the kernel wrappers refuse CPU tensors.
@@ -244,3 +249,68 @@ def test_resolve_devices(monkeypatch):
         resolve_devices([])
     with pytest.raises(TypeError, match="sequence"):
         resolve_devices("cpu")
+
+
+def test_registry_equals_jax_without_the_unported_families():
+    """The port registers every scenario of the JAX package's registry, with
+    the same fields, except the routed-fleet, rebalancing, site and chaos
+    families (their subsystems are not ported)."""
+    import repro.provisioning  # noqa: F401  (registers the JAX mc-* scenarios)
+    import repro_torch.provisioning  # noqa: F401
+    from repro.experiments import scenario as jax_scenario
+    from repro_torch.experiments.scenario import get_scenario, list_scenarios
+
+    unported = (set(jax_scenario.FLEET_SCENARIO_FAMILY)
+                | {n for n in jax_scenario.list_scenarios()
+                   if n.startswith("fleet-rebalance-")}
+                | set(jax_scenario.SITE_SCENARIO_FAMILY)
+                | set(jax_scenario.CHAOS_SCENARIO_FAMILY))
+    want = [n for n in jax_scenario.list_scenarios() if n not in unported]
+    assert list_scenarios() == want
+    assert {"mc-diurnal", "fig14-plus30", "table2-baseline"} <= set(want)
+    for name in want:
+        assert get_scenario(name).to_dict() == \
+            jax_scenario.get_scenario(name).to_dict(), name
+
+
+@pytest.mark.parametrize("opts", [
+    pytest.param(dict(device="cuda"), id="device-cuda"),
+    pytest.param(dict(device="cpu"), id="device-cpu"),
+    pytest.param(dict(member_chunk=4), id="member_chunk"),
+    pytest.param(dict(devices=["cpu"]), id="devices"),
+    pytest.param(dict(keep_series=False), id="keep_series"),
+])
+def test_event_driven_engine_refuses_batched_options(opts):
+    """engine="numpy" runs on the host: a device or a batched-engine option
+    raises (as JAX's engine="numpy" refuses the batched options), on
+    run_ensemble, run_ensemble_grid and plan_capacity."""
+    spec = _small_spec()
+    with pytest.raises(ValueError, match="engine='numpy'"):
+        run_ensemble(spec, engine="numpy", **opts)
+    with pytest.raises(ValueError, match="engine='numpy'"):
+        run_ensemble_grid([spec.base], n_seeds=2, engine="numpy", **opts)
+    with pytest.raises(ValueError, match="engine='numpy'"):
+        plan_capacity(spec.base, n_seeds=2, engine="numpy", **opts)
+
+
+def test_cuda_engine_still_raises_without_a_card_on_calibrated_scenarios(
+        monkeypatch):
+    """The event-driven engine is no CPU fallback: without a card the default
+    engine="cuda" raises on the calibrated mc-* family as on any scenario,
+    and only engine="numpy", asked for by name, runs on the host."""
+    import repro_torch.provisioning  # noqa: F401
+    from repro_torch.experiments.scenario import get_scenario
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = get_scenario("mc-diurnal").with_(duration_s=600.0)
+    spec = EnsembleSpec(base, n_seeds=1)
+    for call in (lambda: run_ensemble(spec),
+                 lambda: run_ensemble(spec, engine="cuda"),
+                 lambda: run_ensemble_grid([base], n_seeds=1, engine="cuda"),
+                 lambda: plan_capacity(base, n_seeds=1),
+                 lambda: plan_scenarios([base], n_seeds=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    res = run_ensemble(EnsembleSpec(base, n_seeds=1, n_workers=1),
+                       engine="numpy")
+    assert res.n_members == 1 and res.budget_w > 0

@@ -194,11 +194,14 @@ def test_compose_site_conserves_and_equals_jax():
 
 
 def test_calibrated_budget_raises_until_simulator_is_ported():
-    sc = Scenario.from_dict(parity_scenario().to_dict()).with_(
-        budget="calibrated")
-    with pytest.raises(NotImplementedError, match="calibrated"):
-        lower_ensemble(EnsembleSpec(sc, n_seeds=2))
-    # nominal and explicit watts lower
+    """The event-driven simulator is ported, so a calibrated budget no
+    longer raises: it lowers, pinned to the budget the JAX package's
+    lowering resolves, bit for bit. Nominal and explicit watts lower too."""
+    jax_sc = parity_scenario().with_(budget="calibrated")
+    sc = Scenario.from_dict(jax_sc.to_dict())
+    model, _, pinned = lower_ensemble(EnsembleSpec(sc, n_seeds=2))
+    assert pinned == jax_lower_ensemble(JaxEnsembleSpec(jax_sc, n_seeds=2))[2]
+    assert model.row_budget_w.tolist() == [pinned] * model.n_rows
     for budget in ("nominal", 90_000.0):
         model, _, pinned = lower_ensemble(
             EnsembleSpec(sc.with_(budget=budget), n_seeds=2))
