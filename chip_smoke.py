@@ -26,6 +26,13 @@ kernels:
   (e) a fault timeline on a (2, 2) power hierarchy against the CUDA engine,
   (f) a predictive ``plan_capacity`` bisection at 1024 seeds; each line
   ends with the card's name and power limit;
+* routed fleets, rebalancing and chaos (phase g, host numpy as in the
+  reference, no kernel): the batched engines' refusal of a routed scenario
+  (the reference's message, no tick launch), the ``fleet-rebalance-*``
+  family at its registered 6 rows x 21 servers and 6 h with the
+  static/no-controller parity, two ``chaos-*`` runs at 2 h, routed members
+  on the fork pool against one worker, the survivability gate and
+  ``plan_controller_comparison``;
 * the serving path: ``ServeEngine`` on full-width llama3.2-1b with random
   weights, 8 requests of 1024-token prompts and 128 new tokens (the flash
   prefill and split-KV decode kernels), its prefill->decode consistency,
@@ -1228,6 +1235,253 @@ def calibrated_planner_family(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (g) routed fleets, budget rebalancing and chaos: host numpy, as in the
+# reference; the batched engines refuse routed scenarios
+# ---------------------------------------------------------------------------
+
+FLEET_REFUSAL = ("batched engine runs unrouted row/cluster scenarios; "
+                 "{name!r} carries a RoutingSpec (use engine='numpy' — the "
+                 "event-driven fleet path)")
+SURVIVE_REFUSAL = ("RiskConstraints.survive needs engine='numpy': the "
+                   "survivability gate runs the routed FleetSimulator, which "
+                   "the batched tick engines do not model (got "
+                   "engine='cuda')")
+REBALANCE_KINDS = ("static", "proportional", "predictive", "forecast-router")
+DERATED_ROW = 5  # fleet-rebalance-*'s 0.7 row_budget_fracs entry
+PARITY_S = 1800.0  # benchmarks/fleet_rebalance.py's static-parity horizon
+CHAOS_S = 2 * 3600.0  # benchmarks/chaos_resilience.py's quick horizon
+CHAOS_RUNS = ("chaos-pdu-loss-static", "chaos-pdu-loss-tree")
+ROUTED_POOL_S = 3600.0
+ROUTED_POOL_SEEDS = 8
+ROUTED_ONE_WORKER_SEEDS = 2
+SURVIVE_SEEDS = 3
+COMPARISON_S = 3600.0  # benchmarks/fleet_rebalance.py's full-mode planner
+COMPARISON_SEEDS = 2
+
+
+def expect_refusal(call, message: str, label: str) -> None:
+    """``call`` raises ValueError with exactly ``message`` (the JAX
+    package's text) and launches no tick kernel."""
+    reset_counts()
+    try:
+        call()
+    except ValueError as e:
+        if str(e) != message:
+            raise AssertionError(f"{label}: refused with {e!s}, want "
+                                 f"{message}") from e
+    else:
+        raise AssertionError(f"{label}: a routed scenario was not refused")
+    check_no_tick_launch(label)
+
+
+def routed_fleets(dev) -> None:
+    """(g) the routed-fleet families on the host at their registered width:
+    (1) the batched engines refuse a routed scenario with the reference's
+    message and no tick launch, (2) the fleet-rebalance-* family at 6 h under
+    the static scenario's calibrated envelope and the static/no-controller
+    parity, (3) two chaos-* runs at the quick horizon, (4) routed members on
+    the fork pool, (5) the survivability gate, (6)
+    plan_controller_comparison. Only horizons and seed counts are cut."""
+    import warnings
+    import numpy as np
+    from repro_torch.chaos import FaultEvent, FaultSpec
+    from repro_torch.experiments.runner import (
+        build_workloads, resolve_budget, run_experiment)
+    from repro_torch.experiments.scenario import (
+        ControllerSpec, FleetSpec, HierarchySpec, PolicySpec, RoutingSpec,
+        Scenario, TrafficSpec, get_scenario)
+    from repro_torch.provisioning import montecarlo, planner
+    from repro_torch.provisioning.montecarlo import (
+        EnsembleSpec, run_ensemble, run_ensemble_grid)
+
+    # (1) refusals, with no fallback to the host
+    fleet = get_scenario("fleet-cap-aware")
+    refusal = FLEET_REFUSAL.format(name=fleet.name)
+    crash2 = FaultSpec((FaultEvent("row-crash", t=600.0, row=0),
+                        FaultEvent("row-crash", t=700.0, row=1),
+                        FaultEvent("row-revive", t=1500.0, row=0),
+                        FaultEvent("row-revive", t=1500.0, row=1)))
+    spec = EnsembleSpec(fleet, n_seeds=2)
+    for label, call, message in (
+            ("run_ensemble(engine='cuda')",
+             lambda: run_ensemble(spec, engine="cuda", device=dev), refusal),
+            ("run_ensemble(engine='torch')",
+             lambda: run_ensemble(spec, engine="torch", device=dev),
+             refusal),
+            ("run_ensemble_grid (default engine)",
+             lambda: run_ensemble_grid([fleet], n_seeds=2, device=dev),
+             refusal),
+            ("plan_capacity(survive=..., engine='cuda')",
+             lambda: planner.plan_capacity(
+                 fleet, n_seeds=2, engine="cuda",
+                 constraints=planner.RiskConstraints(survive=crash2)),
+             SURVIVE_REFUSAL)):
+        expect_refusal(call, message, label)
+    say(f"(g) routed fleets: {fleet.name} refused by run_ensemble "
+        f"engine='cuda' and 'torch', run_ensemble_grid's default engine and "
+        f"plan_capacity(survive=..., engine='cuda'), each with the "
+        f"reference's ValueError and no tick launch")
+
+    # (2) the rebalance family at its registered size under one envelope
+    base = get_scenario("fleet-rebalance-static")
+    wls, shares = build_workloads(base)
+    t0 = time.perf_counter()
+    budget = resolve_budget(base, wls, shares, base.fleet.server())
+    say(f"(g) fleet-rebalance-static: calibrated envelope {budget!r} W "
+        f"({base.fleet.n_rows} rows x {base.fleet.n_servers} servers, "
+        f"{base.duration_s / 3600:g} h) in {time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    for kind in REBALANCE_KINDS:
+        sc = get_scenario(f"fleet-rebalance-{kind}").with_(budget=budget)
+        t0 = time.perf_counter()
+        o = run_experiment(sc)
+        run_s = time.perf_counter() - t0
+        s, f = o.stats.summary(), o.fleet
+        if not (np.isfinite(f.cluster_power_frac).all()
+                and f.n_admitted + f.n_shed_total == f.n_offered
+                and (f.n_rebalances == 0) == (kind == "static")):
+            raise AssertionError(f"fleet-rebalance-{kind}: implausible fleet")
+        say(f"(g) fleet-rebalance-{kind} ({sc.fleet.n_rows} x "
+            f"{sc.fleet.n_servers}, {sc.duration_s / 3600:g} h): "
+            f"{run_s:.2f} s; HP p99 impact {s['hp_p99']:.4f}, LP p99 impact "
+            f"{s['lp_p99']:.4f}; brakes on the derated row "
+            f"{f.row_results[DERATED_ROW].n_brakes} (all rows {f.n_brakes}); "
+            f"rebalances {f.n_rebalances} moving "
+            f"{f.budget_moved_w() / 1e3:.1f} kW; shed {f.n_shed_total} of "
+            f"{f.n_offered}")
+    check_no_tick_launch("the fleet-rebalance family")
+    par = base.with_(duration_s=PARITY_S, budget=budget,
+                     compare_to_reference=False)
+    a, b = run_experiment(par), run_experiment(par.with_(controller=None))
+    fa, fb = a.fleet, b.fleet
+    if not (a.result.latencies == b.result.latencies
+            and np.array_equal(fa.cluster_power_frac, fb.cluster_power_frac)
+            and np.array_equal(fa.row_power_frac, fb.row_power_frac)
+            and fa.decisions == fb.decisions and fa.n_rebalances == 0):
+        raise AssertionError("static controller differs from no controller")
+    say(f"(g) fleet-rebalance-static == controller=None bit for bit at "
+        f"{PARITY_S:g} s ({len(fa.decisions)} decisions)")
+
+    # (3) chaos at the benchmark's quick horizon, one explicit envelope
+    chaos_budget = get_scenario(CHAOS_RUNS[0]).budget
+    reset_counts()
+    for name in CHAOS_RUNS:
+        sc = get_scenario(name).with_(duration_s=CHAOS_S, budget=chaos_budget)
+        t0 = time.perf_counter()
+        o = run_experiment(sc)
+        run_s = time.perf_counter() - t0
+        f = o.fleet
+        if not f.fault_events or f.n_admitted + f.n_shed_total != f.n_offered:
+            raise AssertionError(f"{name}: no fault applied, or work lost")
+        records = "; ".join(
+            f"t={r.t:g} {r.kind} {r.target} {r.phase} x{r.factor:g} "
+            f"({r.detail})" for r in f.fault_events)
+        by_rule = {}
+        for ev in f.alert_events:
+            by_rule[f"{ev.name}/{ev.phase}"] = \
+                by_rule.get(f"{ev.name}/{ev.phase}", 0) + 1
+        say(f"(g) {name} ({sc.fleet.n_rows} rows {sc.hierarchy.shape}, "
+            f"{CHAOS_S / 3600:g} h): {run_s:.2f} s; brakes {f.n_brakes}, "
+            f"shed {f.n_shed_total}, rebalances {f.n_rebalances}; faults: "
+            f"{records}; alerts by rule: {by_rule}")
+    check_no_tick_launch("the chaos runs")
+
+    # (4) routed members on the fork pool
+    pool_spec = EnsembleSpec(
+        get_scenario("fleet-rebalance-predictive").with_(
+            duration_s=ROUTED_POOL_S),
+        n_seeds=ROUTED_POOL_SEEDS, n_workers=ROUTED_POOL_SEEDS,
+        with_reference=True)
+    workers = montecarlo._default_workers(pool_spec.n_seeds,
+                                          pool_spec.n_workers)
+    if workers < 2:
+        raise AssertionError(f"{workers} worker(s): the fork pool is not run")
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        ens = run_ensemble(pool_spec, engine="numpy")
+        pool_s = time.perf_counter() - t0
+    inline = [w for w in caught if "process pool unavailable" in str(w.message)]
+    if inline:
+        raise AssertionError(f"the fork pool did not run: {inline[0].message}")
+    k = ROUTED_ONE_WORKER_SEEDS
+    t0 = time.perf_counter()
+    one = run_ensemble(dataclasses.replace(pool_spec, n_seeds=k, n_workers=1),
+                       budget_w=ens.budget_w, engine="numpy")
+    one_s = time.perf_counter() - t0
+    check_no_tick_launch("routed members on engine='numpy'")
+    for name in ("brake_counts", "peak_fracs", "mean_fracs", "power_frac"):
+        if not np.array_equal(getattr(ens, name)[:k], getattr(one, name)):
+            raise AssertionError(f"routed members: {name} differs between "
+                                 f"{workers} workers and 1")
+    if [(m.result.latencies, m.stats.hp_impacts, m.stats.lp_impacts)
+            for m in ens.members[:k]] != \
+            [(m.result.latencies, m.stats.hp_impacts, m.stats.lp_impacts)
+             for m in one.members]:
+        raise AssertionError("routed members: results differ between "
+                             f"{workers} workers and 1")
+    say(f"(g) run_ensemble(fleet-rebalance-predictive, {pool_spec.n_seeds} "
+        f"seeds, {ROUTED_POOL_S / 3600:g} h, with_reference, "
+        f"engine='numpy'): {pool_s:.2f} s on {workers} fork workers = "
+        f"{pool_spec.n_seeds / pool_s:.3f} members/s (calibration included); "
+        f"its first {k} on 1 worker {one_s:.2f} s, bit-identical; brake_prob "
+        f"{ens.brake_prob():.4f}, peak max {ens.peak_fracs.max():.4f}")
+
+    # (5) the survivability gate on benchmarks/chaos_resilience.py's
+    # chaos-plan scenario
+    plan_base = Scenario(
+        name="chaos-plan", duration_s=1800.0,
+        fleet=FleetSpec(n_provisioned=8, added_frac=0.0, n_rows=4),
+        policy=PolicySpec("polca"), traffic=TrafficSpec(occ_peak=0.62),
+        routing=RoutingSpec("cap-aware", admission="shed-lp",
+                            admission_params={"shed_above": 0.97}),
+        controller=ControllerSpec("predictive", scope="tree"),
+        hierarchy=HierarchySpec(shape=(2, 2)), budget="calibrated")
+    reset_counts()
+    plans = {}
+    for label, cons in (("free", planner.RiskConstraints()),
+                        ("survive", planner.RiskConstraints(survive=crash2))):
+        t0 = time.perf_counter()
+        p = planner.plan_capacity(plan_base, constraints=cons,
+                                  n_seeds=SURVIVE_SEEDS, max_added_frac=0.5,
+                                  engine="numpy")
+        plans[label] = p
+        probes = ", ".join(
+            f"+{q.added_servers}:{'ok' if q.feasible else 'no'}"
+            f"(brake_p={q.brake_prob:.3f}, slo_p={q.slo_violation_prob:.3f}"
+            + ("" if q.fault_brake_prob is None
+               else f", fault_brake_p={q.fault_brake_prob:.3f}") + ")"
+            for q in p.probes)
+        say(f"(g) chaos-plan {label} plan_capacity({SURVIVE_SEEDS} seeds, "
+            f"{plan_base.duration_s:g} s, engine='numpy'): "
+            f"safe_added_servers={p.safe_added_servers} "
+            f"(+{p.safe_added_frac:.1%}) in {time.perf_counter() - t0:.2f} s; "
+            f"probes {probes}")
+    check_no_tick_launch("the survivability gate")
+    if plans["survive"].safe_added_servers > plans["free"].safe_added_servers:
+        raise AssertionError("the survivable plan exceeds the fault-free plan")
+    if any(q.fault_brake_prob is None for q in plans["survive"].probes):
+        raise AssertionError("a survive probe has no faulted ensemble")
+
+    # (6) how much oversubscription rebalancing buys back
+    reset_counts()
+    t0 = time.perf_counter()
+    cmp = planner.plan_controller_comparison(
+        base.with_(duration_s=COMPARISON_S), ("static", "predictive"),
+        n_seeds=COMPARISON_SEEDS, seed0=1000, max_added_frac=0.30,
+        budget_w=budget)
+    cmp_s = time.perf_counter() - t0
+    check_no_tick_launch("plan_controller_comparison")
+    say(f"(g) plan_controller_comparison(fleet-rebalance-static, "
+        f"{COMPARISON_S / 3600:g} h, {COMPARISON_SEEDS} seeds, up to +30 %): "
+        + ", ".join(f"{kind} safe_added_servers={p.safe_added_servers} "
+                    f"(+{p.safe_added_frac:.1%}, {len(p.probes)} probes)"
+                    for kind, p in cmp.items())
+        + f" in {cmp_s:.2f} s")
+
+
 def main() -> int:
     global CARD
     import numpy as np
@@ -1444,6 +1698,12 @@ def main() -> int:
     invariance(dev, sc)
     faults_and_hierarchy(dev, sc)
     torch_planner(cons)
+
+    # 5g. routed fleets, rebalancing and chaos (host numpy, no kernel)
+    t0 = time.perf_counter()
+    routed_fleets(dev)
+    say(f"(g) routed fleets, rebalancing and chaos: phase total "
+        f"{time.perf_counter() - t0:.2f} s on the host")
 
     # 6. the serving main path at full width, then the card against the CPU
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32

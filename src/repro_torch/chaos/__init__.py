@@ -1,8 +1,13 @@
-"""Fault timelines (port of ``repro.chaos``): the data model of
-:mod:`repro_torch.chaos.faults`. Scenarios opt in with
-``Scenario.with_faults``; the batched lowering turns a timeline into
-per-tick row-alive masks and budget scales. The injector that applies a
-timeline to the event-driven fleet waits for the port of the fleet.
+"""Chaos engine: injectable fault timelines for oversubscribed fleets (port
+of ``repro.chaos``).
+
+The data model (:class:`FaultSpec` / :class:`FaultEvent`, pure data, JSON
+round-trippable) lives in :mod:`repro_torch.chaos.faults`; the runtime
+(:class:`ChaosInjector`, polled by ``FleetSimulator`` between telemetry
+ticks) in :mod:`repro_torch.chaos.injector`. Scenarios opt in with
+``Scenario.with_faults``; see DESIGN.md §13 and the ``chaos-*`` scenario
+family. The batched lowering (``provisioning.batched``) turns the same
+timeline into per-tick row-alive masks and budget scales.
 """
 
 from repro_torch.chaos.faults import (  # noqa: F401
@@ -10,9 +15,12 @@ from repro_torch.chaos.faults import (  # noqa: F401
     FaultEvent,
     FaultSpec,
 )
+from repro_torch.chaos.injector import ChaosInjector, FaultRecord  # noqa: F401
 
 __all__ = [
     "FAULT_EVENT_BUILDERS",
     "FaultEvent",
     "FaultSpec",
+    "ChaosInjector",
+    "FaultRecord",
 ]

@@ -1,28 +1,42 @@
-"""Serializable fault timelines (port of ``repro.chaos.faults``).
+"""Serializable fault timelines: the chaos engine's data model (port of
+``repro.chaos.faults``, copied in full).
 
-A :class:`FaultSpec` makes a power emergency a JSON-round-trippable part of
-a :class:`~repro_torch.experiments.scenario.Scenario` (``Scenario.faults`` /
-``with_faults``): an ordered timeline of :class:`FaultEvent`\\ s. Four event
-kinds are registered in ``FAULT_EVENT_BUILDERS``:
+POLCA's safety argument is that the control plane *reacts* to rare power
+emergencies, yet every healthy-fleet benchmark measures steady state. A
+:class:`FaultSpec` makes the emergency itself a first-class, JSON-round-
+trippable part of a :class:`~repro_torch.experiments.scenario.Scenario`
+(``Scenario.faults`` / ``with_faults``): an ordered timeline of
+:class:`FaultEvent`\\ s the :class:`~repro_torch.chaos.injector.ChaosInjector`
+applies between fleet telemetry ticks. Four event kinds are registered (the
+``FAULT_EVENT_BUILDERS`` registry backs docs/registries.md exactly like the
+policy/router registries):
 
-  * ``row-crash`` / ``row-revive`` — a row drops out of service and later
-    returns;
-  * ``node-derate`` — a step- or ramp-derate of a budget-tree node's
+  * ``row-crash`` / ``row-revive`` — a row is fenced from the dispatcher
+    (in-flight work drains; arrivals route around it, or are shed when no
+    row is left) and later returns through the existing
+    ``RowSimulator.inject()`` revival path;
+  * ``node-derate`` — a step- or ramp-derate of any budget-tree node's
     deliverable capacity (a PDU losing a feed, a thermally throttled rack):
-    the target's subtree budgets scale down;
+    the target's subtree budgets scale down and the lost watts leave every
+    ancestor envelope, so the budget tree stays conservative; a hard
+    capacity cap (``PowerHierarchy.node_cap_w``) stops rebalancing
+    controllers from promising the node watts the hardware can no longer
+    carry;
   * ``site-demand-response`` — a grid event shrinking the *root* (site)
-    envelope on a schedule; a ``node-derate`` targeting the root.
+    envelope on a schedule; exactly a ``node-derate`` targeting the root.
 
-Budget events with ``until`` restore at that time.
+Budget events with ``until`` restore at that time: the removed watts are
+returned to the node's subtree and every ancestor, so the root envelope
+round-trips exactly even if a controller moved budgets in between. The
+batched lowering (``provisioning.batched._lower_faults``) turns the same
+timeline into per-tick row-alive masks and budget scales.
 
-The batched lowering (``provisioning.batched._lower_faults``) turns a
-timeline into per-tick row-alive masks and budget scales. Validation is
-two-stage: structural checks at construction (``__post_init__``), and
-:meth:`FaultSpec.validate` against the concrete run (events beyond the
-trace duration, rows that don't exist, node names absent from the
-scenario's hierarchy), raising ``ValueError`` naming the offending event.
-The injector that applies a timeline to the event-driven fleet waits for
-the port of the fleet.
+Validation is two-stage: structural checks run at construction
+(``__post_init__``), and :meth:`FaultSpec.validate` — called when the fleet
+is *built*, before any event is simulated — checks the timeline against the
+concrete run (events beyond the trace duration, rows that don't exist, node
+names absent from the scenario's hierarchy) and raises ``ValueError``
+naming the offending event instead of surfacing as a mid-run error.
 """
 
 from __future__ import annotations
@@ -76,9 +90,10 @@ class FaultEvent:
 
 
 # ---------------------------------------------------------------------------
-# registry: one marker class per event kind, carrying its docstring and its
-# structural validation — the same name-keyed pattern as the policy
-# registry, so FaultSpec stays JSON-serializable.
+# registry: one marker class per event kind. The classes carry the docstring
+# the registry reference (docs/registries.md) renders, and the per-kind
+# structural validation — the same name-keyed pattern as the policy/router/
+# rebalance registries, so FaultSpec stays JSON-serializable.
 # ---------------------------------------------------------------------------
 
 def _require(cond: bool, event: FaultEvent, why: str) -> None:
@@ -87,7 +102,7 @@ def _require(cond: bool, event: FaultEvent, why: str) -> None:
 
 
 class RowCrash:
-    """A row drops out of service: its occupancy goes to zero until a revive, budgets untouched."""
+    """A row drops out of the serving pool: the dispatcher fences it (in-flight work drains, arrivals route around it or shed), budgets untouched."""
 
     @staticmethod
     def check(e: FaultEvent) -> None:
@@ -100,13 +115,13 @@ class RowCrash:
 
 
 class RowRevive:
-    """A crashed row returns to service."""
+    """A crashed row returns to the routing pool; a row drained past its duration re-enters through the RowSimulator.inject() revival path."""
 
     check = RowCrash.check
 
 
 class NodeDerate:
-    """Step- or ramp-derate of a budget-tree node's deliverable capacity (PDU feed loss, thermal throttle): subtree budgets scale down until the optional restore."""
+    """Step- or ramp-derate of a budget-tree node's deliverable capacity (PDU feed loss, thermal throttle): subtree budgets scale down, the lost watts leave every ancestor envelope, and a capacity cap blocks controllers from re-growing the node until the optional restore."""
 
     @staticmethod
     def check(e: FaultEvent) -> None:
@@ -153,8 +168,10 @@ class FaultSpec:
 
     Structural validity is checked at construction; run-shape validity
     (durations, row indices, node names) in :meth:`validate`, which the
-    lowering calls before any tick is lowered. An empty spec is a no-op:
-    the lowering leaves every row alive and every budget unscaled."""
+    fleet builder calls before the simulation starts. An empty spec is a
+    guaranteed no-op: the fleet driver skips the injector entirely, so a
+    ``chaos-*`` scenario with ``FaultSpec()`` is bit-identical to its
+    fault-free counterpart (tier-1-asserted)."""
 
     events: Tuple[FaultEvent, ...] = ()
 
@@ -180,6 +197,13 @@ class FaultSpec:
     def is_noop(self) -> bool:
         return not self.events
 
+    def routing_only(self) -> "FaultSpec":
+        """The row-crash/row-revive subset. Uncapped reference twins carry
+        exactly this: a crash is an environmental capacity loss both runs
+        must see (so SLO diffs isolate power management), while budget
+        derates *are* power management and never touch a reference."""
+        return FaultSpec(tuple(e for e in self.events if e.kind in _ROW_KINDS))
+
     def budget_events(self) -> Tuple[FaultEvent, ...]:
         return tuple(e for e in self.events if e.kind in _BUDGET_KINDS)
 
@@ -190,7 +214,9 @@ class FaultSpec:
     def validate(self, *, duration_s: float, n_rows: int,
                  node_names: Optional[Sequence[str]] = None) -> None:
         """Check the timeline against a concrete run, raising ``ValueError``
-        naming the offending event, before any tick is lowered."""
+        naming the offending event. Called at fleet-build time — before any
+        event is simulated — so a bad timeline never surfaces as a mid-run
+        ``RuntimeError`` from ``inject()``."""
         names = set(node_names) if node_names is not None else None
         for e in self.events:
             _require(e.t <= duration_s, e,

@@ -5,9 +5,9 @@ Declare an experiment as a :class:`Scenario` (fleet x workload x policy x
 telemetry x seed), run it with :func:`run_experiment`, and read a structured
 :class:`ExperimentResult`. Multi-row fleets run under the hierarchical
 :class:`ClusterSimulator`; policies consume structured
-:class:`~repro_torch.core.telemetry.Telemetry` samples. Routed fleets, budget
-rebalancing and alerting (``RoutingSpec``, ``ControllerSpec`` and the fleet,
-site and chaos scenario families) wait for their port.
+:class:`~repro_torch.core.telemetry.Telemetry` samples; routed fleets
+(``RoutingSpec``, ``ControllerSpec``) run under
+:class:`~repro_torch.fleet.fleet.FleetSimulator`.
 """
 
 from repro_torch.chaos import FaultEvent, FaultSpec
@@ -27,11 +27,16 @@ from repro_torch.experiments.runner import (
     threshold_search,
 )
 from repro_torch.experiments.scenario import (
+    CHAOS_SCENARIO_FAMILY,
     DAY,
+    FLEET_SCENARIO_FAMILY,
+    SITE_SCENARIO_FAMILY,
     WEEK,
+    ControllerSpec,
     FleetSpec,
     HierarchySpec,
     PolicySpec,
+    RoutingSpec,
     Scenario,
     TelemetryConfig,
     TrafficSpec,
@@ -42,17 +47,22 @@ from repro_torch.experiments.scenario import (
 
 __all__ = [
     "BASELINE_PEAK_UTIL",
+    "CHAOS_SCENARIO_FAMILY",
     "ClusterResult",
     "ClusterSimulator",
+    "ControllerSpec",
     "DAY",
     "ExperimentResult",
+    "FLEET_SCENARIO_FAMILY",
     "FaultEvent",
     "FaultSpec",
     "FleetSpec",
     "HierarchySpec",
     "PowerHierarchy",
     "RackHierarchy",
+    "SITE_SCENARIO_FAMILY",
     "PolicySpec",
+    "RoutingSpec",
     "Scenario",
     "Telemetry",
     "TelemetryConfig",

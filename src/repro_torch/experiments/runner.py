@@ -4,14 +4,13 @@
 Build the Table-4 workload classes for the scenario's model/device, generate
 the seeded arrival trace, calibrate the row power budget to the paper's
 Table-2 operating point (unless the scenario pins it), run an uncapped
-reference plus the policy run (row or multi-row cluster) on the event-driven
-simulator, and gate the outcome against the SLOs. The budget rule and the
-per-row construction points here are shared with the batched lowering
-(``repro_torch.provisioning.batched``) and the event-driven Monte-Carlo
-engine, so every path resolves budgets and builds rows the same way.
+reference plus the policy run (row, multi-row cluster, or routed fleet) on
+the event-driven simulator, and gate the outcome against the SLOs. The budget
+rule and the per-row construction points here are shared with the batched
+lowering (``repro_torch.provisioning.batched``), the event-driven
+Monte-Carlo engine and the routed fleet (``repro_torch.fleet``), so every
+path resolves budgets and builds rows the same way.
 
-A routed fleet (``Scenario.routing``) is not ported: such a scenario raises
-when it is built, so ``run_experiment`` runs rows and clusters only.
 ``core.oversubscription`` keeps the legacy positional wrappers.
 """
 
@@ -39,8 +38,9 @@ BASELINE_PEAK_UTIL = 0.79  # Table 2: inference rows peak at 79% of provisioned
 @dataclass
 class ExperimentResult:
     """Outcome of one scenario run (field-compatible with the old
-    ``EvalOutcome`` for the row path; cluster runs add ``cluster``, whose
-    ``result`` is row 0's)."""
+    ``EvalOutcome`` for the row path; cluster runs add ``cluster``, routed
+    fleet runs add ``fleet`` — for those, ``result`` is the cluster-shaped
+    merge from :func:`repro_torch.fleet.as_sim_result`)."""
 
     n_servers: int
     added_frac: float
@@ -53,6 +53,7 @@ class ExperimentResult:
     scenario: Optional[Scenario] = None
     budget_w: Optional[float] = None
     cluster: Optional[ClusterResult] = None
+    fleet: Optional[object] = None  # repro_torch.fleet.FleetResult
 
 
 def build_workloads(scenario: Scenario) -> Tuple[List[WorkloadClass], List[float]]:
@@ -130,10 +131,9 @@ def row_sim(scenario: Scenario, workloads, shares, server,
             budget_w: Optional[float], policy, reqs: List[Request], *,
             row_index: int = 0) -> RowSimulator:
     """The policy-run RowSimulator for one row of the scenario — the single
-    construction point shared by ``run_experiment`` and the event-driven
-    Monte-Carlo engine (``repro_torch.provisioning.montecarlo``), so
-    ensemble members stay bit-identical with sequential runs by
-    construction."""
+    construction point shared by ``run_experiment`` and the Monte-Carlo
+    engine (``repro_torch.provisioning.montecarlo``), so batched runs stay
+    bit-identical with sequential ones by construction."""
     fleet = scenario.fleet
     return RowSimulator(workloads, server, fleet.n_servers, fleet.n_provisioned,
                         policy, reqs, shares, _sim_config(scenario),
@@ -191,20 +191,19 @@ def run_experiment(scenario: Scenario, *,
     if scenario.duration_s <= 0:
         raise ValueError(f"scenario {scenario.name!r}: duration_s must be > 0, "
                          f"got {scenario.duration_s}")
-    faults = scenario.faults
-    if faults is not None and not faults.is_noop:
-        # the JAX package's ChaosInjector rides the routed fleet's tick
-        # lockstep; the per-row/cluster paths have no dispatcher to fence
-        # rows from (the batched lowering models faults on its own)
+    faults = getattr(scenario, "faults", None)
+    if faults is not None and not faults.is_noop and scenario.routing is None:
+        # the ChaosInjector rides the FleetSimulator tick lockstep; the
+        # per-row/cluster paths have no dispatcher to fence rows from
         raise ValueError(
             f"scenario {scenario.name!r} carries a fault timeline but no "
-            f"RoutingSpec; the chaos engine needs a routed fleet (not ported "
-            f"yet; the batched engines 'cuda' and 'torch' run fault "
-            f"timelines)")
+            f"RoutingSpec; the chaos engine needs a routed fleet")
     server = server if server is not None else scenario.fleet.server()
     wls, shares = workloads if workloads is not None else build_workloads(scenario)
     budget_w = resolve_budget(scenario, wls, shares, server)
     mk = policy_factory if policy_factory is not None else scenario.policy.build
+    if scenario.routing is not None:
+        return _run_fleet(scenario, wls, shares, server, budget_w, mk)
     if scenario.fleet.n_rows > 1:
         return _run_cluster(scenario, wls, shares, server, budget_w, mk)
     return _run_row(scenario, wls, shares, server, budget_w, mk)
@@ -268,9 +267,9 @@ def _run_cluster(scenario: Scenario, wls, shares, server,
     per_row_budget = [budget_w] * fleet.n_rows
     if hspec is not None:
         # planner-shaped budget tree: interior derates propagate down to the
-        # per-row budgets (the tree stays conservative), exactly as in the
-        # batched lowering — base budgets resolved by the same row_budgets
-        # rule
+        # per-row budgets (the tree stays conservative), exactly as on the
+        # routed-fleet path — base budgets resolved by the same
+        # row_budgets rule
         hierarchy = hspec.build(row_budgets(scenario, budget_w, server))
         per_row_budget = [float(b) for b in hierarchy.leaf_budget_w]
     rows = []
@@ -308,6 +307,39 @@ def _run_cluster(scenario: Scenario, wls, shares, server,
         meets=meets_slo(stats, cres.n_brakes, scenario.slo),
         throughput_ratio_hp=None, throughput_ratio_lp=None,
         scenario=scenario, budget_w=budget_w, cluster=cres,
+    )
+
+
+def _run_fleet(scenario: Scenario, wls, shares, server,
+               budget_w: Optional[float], policy_factory) -> ExperimentResult:
+    """Routed fleet run: one cluster-wide arrival process dispatched over
+    ``n_rows`` rows by the scenario's RoutingSpec (repro_torch.fleet). The
+    reference, when requested, is the uncapped twin fleet under the same
+    router on the same trace, so stats isolate power-management impact from
+    the routing policy's own queueing behavior."""
+    # imported here: repro_torch.fleet sits above repro_torch.experiments
+    # in the stack
+    from repro_torch.fleet.fleet import as_sim_result, build_fleet, fleet_trace
+
+    fleet = scenario.fleet
+    reqs = fleet_trace(scenario, wls, shares)
+    fres = build_fleet(scenario, wls, shares, server, budget_w,
+                       policy_factory, reqs).run()
+    res = as_sim_result(fres)
+
+    ref = None
+    if scenario.compare_to_reference:
+        ref_fres = build_fleet(scenario, wls, shares, server, budget_w,
+                               policy_factory, reqs, reference=True).run()
+        ref = as_sim_result(ref_fres)
+    stats, tr_hp, tr_lp = _reference_stats(reqs, res, ref)
+    return ExperimentResult(
+        n_servers=fleet.n_servers * fleet.n_rows,
+        added_frac=fleet.n_servers / fleet.n_provisioned - 1.0,
+        stats=stats, result=res, ref_result=ref,
+        meets=meets_slo(stats, fres.n_brakes, scenario.slo),
+        throughput_ratio_hp=tr_hp, throughput_ratio_lp=tr_lp,
+        scenario=scenario, budget_w=budget_w, fleet=fres,
     )
 
 

@@ -39,6 +39,7 @@ from repro_torch.provisioning.planner import (
     PlanResult,
     RiskConstraints,
     plan_capacity,
+    plan_controller_comparison,
     plan_scenarios,
 )
 
@@ -59,6 +60,7 @@ __all__ = [
     "compose_site",
     "lower_ensemble",
     "plan_capacity",
+    "plan_controller_comparison",
     "plan_scenarios",
     "resolve_ensemble_budget",
     "run_batched_ensemble",

@@ -380,8 +380,15 @@ def lower_ensemble(spec: EnsembleSpec, *, budget_w: Optional[float] = None
                    ) -> Tuple[TickModel, List[Scenario], float]:
     """Lower an EnsembleSpec to the batched tick program. Returns
     ``(model, member_scenarios, resolved_budget_w)`` — members carry the
-    same pinned budget ``run_ensemble`` pins."""
+    same pinned budget ``run_ensemble`` pins. A routed fleet
+    (``Scenario.routing``) is refused: the tick program lowers rows, and
+    the fleet runs on the event-driven engine only."""
     sc = spec.base
+    if sc.routing is not None:
+        raise ValueError(
+            f"batched engine runs unrouted row/cluster scenarios; "
+            f"{sc.name!r} carries a RoutingSpec (use engine='numpy' — the "
+            f"event-driven fleet path)")
     if sc.duration_s < 120.0:
         raise ValueError(
             f"batched engine needs duration_s >= 120 (two 60 s occupancy "

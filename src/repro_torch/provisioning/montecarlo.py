@@ -16,6 +16,11 @@ vectorized reduction over per-member arrays.
   run as a lockstep pool of :class:`~repro_torch.core.simulator.RowSimulator`
   objects (advanced on a shared stride grid, the drive mode of the cluster
   simulator), sharded across a small fork-based process pool on the host.
+  A member whose scenario carries a ``RoutingSpec`` runs as a whole routed
+  fleet (:class:`~repro_torch.fleet.fleet.FleetSimulator`, with its
+  rebalancing controller and a fresh chaos injector per member) through the
+  same lockstep protocol; this is the only engine that runs routed fleets,
+  and the batched engines refuse them.
   Members are built through the same
   :func:`~repro_torch.experiments.runner.row_trace` / ``row_sim`` path as
   ``run_experiment``, so results are bit-identical to a sequential
@@ -329,11 +334,14 @@ def _member_budget_w(sc: Scenario) -> Optional[float]:
         "pins the base scenario's resolved budget across members)")
 
 
-def _finalize_member(sim: RowSimulator) -> SimResult:
-    """A member's SimResult. Members are rows: the JAX package's routed-fleet
-    members, which collapse a FleetResult here, wait for the port of the
-    fleet (``Scenario.routing`` raises)."""
-    return sim.finalize()
+def _finalize_member(sim) -> SimResult:
+    """Row members finalize to a SimResult directly; fleet members collapse
+    their FleetResult into the cluster-shaped equivalent."""
+    res = sim.finalize()
+    if isinstance(res, SimResult):
+        return res
+    from repro_torch.fleet.fleet import as_sim_result
+    return as_sim_result(res)
 
 
 def _run_shard(payload: Tuple[List[Scenario], float, int]
@@ -342,9 +350,13 @@ def _run_shard(payload: Tuple[List[Scenario], float, int]
     """Worker: run one shard of members as a lockstep pool (the cluster
     drive mode: start all, advance all on a stride grid, finalize all).
     Members whose scenario requests a reference comparison get a paired
-    uncapped reference simulation in the same lockstep pass. Workers run
-    numpy and Python only: a pool forked from a process that has
-    initialized CUDA never touches ``torch.cuda``.
+    uncapped reference simulation in the same lockstep pass. Members whose
+    scenario carries a RoutingSpec run as whole routed fleets
+    (:class:`~repro_torch.fleet.fleet.FleetSimulator`) — multi-row ensemble
+    members lockstep next to single-row ones through the same drive
+    protocol, with any declared ControllerSpec rebalancing their row budgets
+    in-run. Workers run numpy and Python only: a pool forked from a process
+    that has initialized CUDA never touches ``torch.cuda``.
 
     Observability: with a recorder installed (inherited across the fork),
     each member records into its **own** fresh recorder — member snapshots
@@ -373,14 +385,24 @@ def _run_shard(payload: Tuple[List[Scenario], float, int]
 def _run_shard_pool(scenarios: List[Scenario], stride: float,
                     member_recs: Optional[List[MetricsRecorder]]
                     ) -> List[Tuple[SimResult, LatencyStats]]:
-    sims: List[RowSimulator] = []
-    refs: List[Optional[RowSimulator]] = []
+    sims: List[object] = []
+    refs: List[Optional[object]] = []
     traces = []
     for sc in scenarios:
         wls, shares = _cached_workloads(sc)
         server = sc.fleet.server()
         n = sc.fleet.n_servers
         budget = _member_budget_w(sc)
+        if sc.routing is not None:
+            from repro_torch.fleet.fleet import build_fleet, fleet_trace
+            reqs = fleet_trace(sc, wls, shares)
+            traces.append(reqs)
+            sims.append(build_fleet(sc, wls, shares, server, budget,
+                                    sc.policy.build, reqs))
+            refs.append(build_fleet(sc, wls, shares, server, budget,
+                                    sc.policy.build, reqs, reference=True)
+                        if sc.compare_to_reference else None)
+            continue
         reqs = row_trace(sc, wls, shares, n, seed=sc.seed)
         traces.append(reqs)
         sims.append(row_sim(sc, wls, shares, server, budget,
@@ -536,7 +558,9 @@ def run_ensemble(spec: EnsembleSpec, *, budget_w: Optional[float] = None,
     ``engine="numpy"`` is the event-driven fork-pool engine above (the JAX
     package's default): it runs on the host, honours ``spec.n_workers``,
     ``spec.lockstep_stride_s`` and ``spec.with_reference``, and refuses
-    ``device`` and every batched-engine option with ``ValueError``.
+    ``device`` and every batched-engine option with ``ValueError``. A routed
+    scenario (``Scenario.routing``) runs on it only: the batched engines
+    refuse a ``RoutingSpec`` (``batched.lower_ensemble``).
     """
     if engine != "numpy":
         from repro_torch.provisioning.batched import run_batched_ensemble

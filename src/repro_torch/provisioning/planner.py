@@ -12,7 +12,15 @@ constraints:
 * ``max_slo_violation_prob`` — bound on P[a realization misses the Table-5
   latency SLOs] (percentile gates from ``core.slo``);
 * ``slo_cvar_alpha`` / ``max_slo_cvar`` — the dense-tail CVaR gate on the
-  per-member SLO impact.
+  per-member SLO impact;
+* ``survive`` — a chaos fault timeline (``repro_torch.chaos.FaultSpec``)
+  the plan must *ride through*: every probe additionally runs the candidate
+  routed fleet with the timeline injected and gates on
+  ``max_fault_brake_prob`` / ``max_fault_brakes``. This prices k-failure
+  survivability — "how much oversubscription can I keep if a PDU dies at
+  peak" — instead of planning for the fault-free best case. Injecting a
+  fault only removes capacity, so feasibility stays monotone in fleet size
+  and bisection stays sound.
 
 SLO impacts are measured the way the paper measures them: each member diffs
 per-request latencies against an uncapped reference run on the same trace
@@ -22,19 +30,16 @@ The budget is resolved once from the provisioned baseline and held fixed
 across candidates and members: the question is "how far can THIS envelope
 stretch". Every probe is recorded so the frontier is auditable, and with a
 recorder installed (:mod:`repro_torch.obs.metrics`) each probe is a
-``planner/probe`` span, event and counter. The survivability gate
-(``RiskConstraints.survive``) runs the routed fleet under a fault timeline
-and waits for the ports of the fleet and the chaos injector (the fault
-timelines themselves are ported: ``Scenario.with_faults`` runs on both
-batched engines).
+``planner/probe`` span, event and counter.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+from repro_torch.chaos.faults import FaultSpec
 from repro_torch.core.slo import DEFAULT_SLO, SLO
 from repro_torch.device import resolve_device
 from repro_torch.experiments.scenario import Scenario
@@ -65,15 +70,25 @@ class RiskConstraints:
     to hold one full sample, so ``plan_capacity`` validates ``n_seeds >=
     ceil(1 / (1 - alpha))``.
 
-    ``survive`` is the JAX package's survivability gate (a fault timeline
-    every probe must ride through); it needs the routed fleet and the chaos
-    injector, which are not ported yet, so it must stay None here."""
+    ``survive`` adds a survivability gate: when set, every probe also runs
+    the candidate fleet with that fault timeline injected (same seeds, same
+    pinned budget) and requires P[faulted member exceeds
+    ``max_fault_brakes``] <= ``max_fault_brake_prob``. The defaults demand
+    the paper's zero-tolerance *under the fault* — the difference between
+    the fault-free and surviving ``safe_added_servers`` is the
+    oversubscription cost of k-failure survivability. SLO gates stay on the
+    fault-free ensemble: a derated fleet is expected to shed/slow, the
+    survivability question is whether the hardware brake ever fires. The
+    gate runs the routed fleet, so it needs a RoutingSpec and
+    ``engine="numpy"``."""
 
     max_brake_prob: float = 0.0  # P[member exceeds the brake budget]
     max_brakes: int = 0  # brakes tolerated per realization/horizon
     max_slo_violation_prob: float = 0.0  # P[member misses the SLO]
     slo: SLO = DEFAULT_SLO
-    survive: Optional[Any] = None  # fault timeline: not ported yet
+    survive: Optional[FaultSpec] = None  # fault timeline the plan must ride through
+    max_fault_brake_prob: float = 0.0  # P[faulted member exceeds fault budget]
+    max_fault_brakes: int = 0  # brakes tolerated per faulted realization
     slo_cvar_alpha: Optional[float] = None  # None: CVaR gate off
     max_slo_cvar: float = 0.0  # bound on CVaR_alpha[per-member Pq impact]
     slo_cvar_priority: str = "high"  # which priority class the gate watches
@@ -90,6 +105,7 @@ class PlanPoint:
     brake_prob: float
     slo_violation_prob: float
     peak_frac_max: float
+    fault_brake_prob: Optional[float] = None  # survivability gate (survive set)
     slo_cvar: Optional[float] = None  # CVaR gate value (slo_cvar_alpha set)
     ensemble: Optional[EnsembleResult] = field(default=None, repr=False)
 
@@ -150,17 +166,27 @@ def plan_capacity(base: Scenario, *,
     run_ensemble` (``engine="torch"`` for predictive policies on the card;
     ``engine="numpy"``, asked for by name, the event-driven host engine,
     which takes ``n_workers`` and no device); ``engine_opts`` forward there
-    (``member_chunk``, ``devices``, ...).
+    (``member_chunk``, ``devices``, ...). ``constraints.survive`` requires
+    the event-driven ``"numpy"`` engine (the chaos injector rides the
+    FleetSimulator, which the tick lowering rejects); so does a routed-fleet
+    ``base`` (``lower_ensemble`` refuses a RoutingSpec).
     """
-    if constraints.survive is not None:
+    n_prov = base.fleet.n_provisioned
+    survive = constraints.survive
+    if survive is not None and survive.is_noop:
+        survive = None
+    if survive is not None and base.routing is None:
         raise ValueError(
-            "RiskConstraints.survive needs the event-driven routed-fleet "
-            "engine with the chaos injector (repro_torch.fleet): not ported "
-            "to PyTorch yet, and the batched tick engines do not model it "
-            f"(got engine={engine!r})")
+            f"RiskConstraints.survive needs a routed-fleet scenario (the "
+            f"chaos engine rides the FleetSimulator); {base.name!r} has no "
+            f"RoutingSpec")
+    if survive is not None and engine != "numpy":
+        raise ValueError(
+            "RiskConstraints.survive needs engine='numpy': the survivability "
+            "gate runs the routed FleetSimulator, which the batched tick "
+            f"engines do not model (got engine={engine!r})")
     if engine != "numpy":
         device = resolve_device(device)
-    n_prov = base.fleet.n_provisioned
     cvar_alpha = constraints.slo_cvar_alpha
     if cvar_alpha is not None:
         min_seeds = int(math.ceil(1.0 / (1.0 - cvar_alpha)))
@@ -188,15 +214,30 @@ def plan_capacity(base: Scenario, *,
             if cvar_alpha is not None:
                 cvar = ens.slo_cvar(constraints.slo_cvar_priority,
                                     cvar_alpha, q=constraints.slo_cvar_q)
+            fault_p: Optional[float] = None
+            if survive is not None:
+                # same seeds + pinned budget, fault timeline injected: the only
+                # difference vs `ens` is the fault, so the gate isolates it. No
+                # reference twins — the gate is brake-only. The routed fleet
+                # runs on the event-driven engine, named here because the
+                # port's default engine is "cuda"
+                fens = run_ensemble(
+                    EnsembleSpec(sc.with_(faults=survive), n_seeds=n_seeds,
+                                 seed0=seed0, n_workers=n_workers),
+                    budget_w=budget, engine="numpy")
+                fault_p = fens.brake_prob(constraints.max_fault_brakes)
         pt = PlanPoint(
             added_servers=k, added_frac=k / n_prov,
             feasible=(brake_p <= constraints.max_brake_prob + _EPS
                       and slo_p <= constraints.max_slo_violation_prob + _EPS
                       and (cvar is None
-                           or cvar <= constraints.max_slo_cvar + _EPS)),
+                           or cvar <= constraints.max_slo_cvar + _EPS)
+                      and (fault_p is None
+                           or fault_p <= constraints.max_fault_brake_prob + _EPS)),
             brake_prob=brake_p, slo_violation_prob=slo_p,
             peak_frac_max=float(ens.peak_fracs.max()) if len(ens.peak_fracs) else 0.0,
-            slo_cvar=cvar, ensemble=ens if keep_ensembles else None)
+            fault_brake_prob=fault_p, slo_cvar=cvar,
+            ensemble=ens if keep_ensembles else None)
         probes.append(pt)
         if rec.enabled:
             # probe outcome: logical time is the probe ordinal (the planner
@@ -226,6 +267,42 @@ def plan_capacity(base: Scenario, *,
         else:
             hi = mid
     return PlanResult(base.name, n_prov, budget, lo, probes)
+
+
+def plan_controller_comparison(base: Scenario,
+                               kinds: Sequence[str] = ("static", "predictive"),
+                               *,
+                               constraints: RiskConstraints = RiskConstraints(),
+                               n_seeds: int = 4, seed0: int = 1000,
+                               max_added_frac: float = 0.60,
+                               budget_w: Optional[float] = None,
+                               n_workers: Optional[int] = None) -> Dict[str, PlanResult]:
+    """How much safe oversubscription dynamic rebalancing buys back.
+
+    Plans the same routed-fleet scenario once per
+    :class:`~repro_torch.experiments.scenario.ControllerSpec` kind — every
+    plan shares the same traffic family, router, and (pinned) power
+    envelope, so the difference in ``safe_added_servers`` between ``static``
+    and a dynamic policy is attributable to budget rebalancing alone.
+    ``base`` must carry a RoutingSpec; its ControllerSpec (when present)
+    supplies the interval/scope/step settings each kind inherits. The plans
+    run on the event-driven engine (``engine="numpy"``), the only one that
+    runs a routed fleet.
+    """
+    if base.routing is None:
+        raise ValueError(
+            f"plan_controller_comparison needs a routed-fleet scenario; "
+            f"{base.name!r} has no RoutingSpec")
+    budget = (resolve_ensemble_budget(base) if budget_w is None
+              else float(budget_w))
+    out: Dict[str, PlanResult] = {}
+    for kind in kinds:
+        sc = base.with_controller(kind).with_(name=f"{base.name}+{kind}")
+        out[kind] = plan_capacity(sc, constraints=constraints, n_seeds=n_seeds,
+                                  seed0=seed0, max_added_frac=max_added_frac,
+                                  budget_w=budget, n_workers=n_workers,
+                                  engine="numpy")
+    return out
 
 
 def plan_scenarios(bases: Sequence[Scenario], *,

@@ -312,10 +312,15 @@ def test_torch_fault_timeline_matches_oracle(factor, t_fault, ramp, policy):
 
 
 def test_planner_rejects_survivability_gate():
+    """The survive gate runs the routed fleet: on an unrouted scenario it
+    raises, as on the batched engines, before any probe runs."""
+    from repro_torch.chaos import FaultEvent, FaultSpec
+
     sc = _port_scenario(parity_scenario(duration_s=HALF_HOUR))
+    crash = FaultSpec((FaultEvent("row-crash", t=60.0, row=0),))
     with pytest.raises(ValueError, match="survive"):
         plan_capacity(sc, device="cpu",
-                      constraints=RiskConstraints(survive=object()))
+                      constraints=RiskConstraints(survive=crash))
 
 
 def _main_path_model(n_seeds: int):

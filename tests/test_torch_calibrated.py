@@ -37,6 +37,7 @@ from repro_torch.experiments.scenario import Scenario, get_scenario
 from repro_torch.obs.metrics import MetricsRecorder, recording
 from repro_torch.provisioning import ensembles, montecarlo as mc, planner
 
+from _torch_parity import assert_same
 from test_torch_simulator import (
     _setup,
     _snapshot_without_spans,
@@ -75,7 +76,7 @@ def assert_stats_equal(got, want):
 
 
 def assert_experiments_equal(got, want):
-    """Two ExperimentResults field for field (the port has no ``fleet``)."""
+    """Two ExperimentResults field for field."""
     assert_stats_equal(got.stats, want.stats)
     for name in ("n_servers", "added_frac", "meets", "throughput_ratio_hp",
                  "throughput_ratio_lp", "budget_w"):
@@ -97,6 +98,11 @@ def assert_experiments_equal(got, want):
                 np.testing.assert_array_equal(a, b, err_msg=f.name)
             else:
                 assert a == b, f.name
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    assert (got.fleet is None) == (want.fleet is None)
+    if want.fleet is not None:
+        assert_same(got.fleet, want.fleet, "fleet")
 
 
 # ---------------------------------------------------------------------------

@@ -194,13 +194,18 @@ def test_copied_numpy_modules_are_scanned():
     rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"src/repro_torch/core/hierarchy.py",
             "src/repro_torch/chaos/faults.py",
-            "src/repro_torch/chaos/__init__.py"} <= rel
+            "src/repro_torch/chaos/__init__.py",
+            "src/repro_torch/chaos/injector.py",
+            "src/repro_torch/fleet/fleet.py",
+            "src/repro_torch/fleet/controller.py",
+            "src/repro_torch/obs/alerts.py",
+            "src/repro_torch/obs/stream.py"} <= rel
 
 
 def test_jax_scenario_with_hierarchy_and_faults_loads():
     """A scenario serialized by the JAX package with a HierarchySpec and a
     FaultSpec loads in the port with both fields and serializes back to the
-    same dict; the still-unported fields raise."""
+    same dict; so do the routing, controller and alerts fields."""
     from conftest import parity_scenario
     from repro.chaos.faults import FaultEvent as JaxFaultEvent
     from repro.experiments.scenario import HierarchySpec as JaxHierarchySpec
@@ -225,8 +230,9 @@ def test_jax_scenario_with_hierarchy_and_faults_loads():
                          ("controller", {"kind": "static"}), ("alerts", [])):
         d = jax_sc.to_dict()
         d[field] = value
-        with pytest.raises(NotImplementedError, match=field):
-            Scenario.from_dict(d)
+        got = Scenario.from_dict(d)
+        assert got.to_json() == type(jax_sc).from_dict(d).to_json()
+        assert Scenario.from_json(got.to_json()) == got
     with pytest.raises(ValueError, match="unknown kind"):
         FaultSpec(({"kind": "meteor", "t": 1.0},))
 
@@ -251,26 +257,30 @@ def test_resolve_devices(monkeypatch):
         resolve_devices("cpu")
 
 
-def test_registry_equals_jax_without_the_unported_families():
-    """The port registers every scenario of the JAX package's registry, with
-    the same fields, except the routed-fleet, rebalancing, site and chaos
-    families (their subsystems are not ported)."""
+def test_registry_equals_jax():
+    """The port registers every scenario of the JAX package's registry, the
+    fleet, rebalancing, site and chaos families included, each with the
+    same fields and the same JSON text."""
     import repro.provisioning  # noqa: F401  (registers the JAX mc-* scenarios)
     import repro_torch.provisioning  # noqa: F401
     from repro.experiments import scenario as jax_scenario
+    from repro_torch.experiments import scenario
     from repro_torch.experiments.scenario import get_scenario, list_scenarios
 
-    unported = (set(jax_scenario.FLEET_SCENARIO_FAMILY)
-                | {n for n in jax_scenario.list_scenarios()
-                   if n.startswith("fleet-rebalance-")}
-                | set(jax_scenario.SITE_SCENARIO_FAMILY)
-                | set(jax_scenario.CHAOS_SCENARIO_FAMILY))
-    want = [n for n in jax_scenario.list_scenarios() if n not in unported]
+    want = jax_scenario.list_scenarios()
     assert list_scenarios() == want
-    assert {"mc-diurnal", "fig14-plus30", "table2-baseline"} <= set(want)
+    assert not hasattr(scenario, "UNPORTED_FIELDS")
+    assert {"mc-diurnal", "fig14-plus30", "table2-baseline", "fleet-cap-aware",
+            "fleet-rebalance-predictive", "site-tree-predictive",
+            "chaos-row-crash"} <= set(want)
+    for family in ("FLEET_SCENARIO_FAMILY", "SITE_SCENARIO_FAMILY",
+                   "CHAOS_SCENARIO_FAMILY"):
+        assert getattr(scenario, family) == getattr(jax_scenario, family)
     for name in want:
         assert get_scenario(name).to_dict() == \
             jax_scenario.get_scenario(name).to_dict(), name
+        assert get_scenario(name).to_json() == \
+            jax_scenario.get_scenario(name).to_json(), name
 
 
 @pytest.mark.parametrize("opts", [
