@@ -32,11 +32,18 @@ kernels:
   family at its registered 6 rows x 21 servers and 6 h with the
   static/no-controller parity, two ``chaos-*`` runs at 2 h, routed members
   on the fork pool against one worker, the survivability gate and
-  ``plan_controller_comparison``;
+  ``plan_controller_comparison``, and the static chaos run again under the
+  recorder (the same counts), its artifacts written and read back and its
+  incidents reconstructed;
 * the serving path: ``ServeEngine`` on full-width llama3.2-1b with random
   weights, 8 requests of 1024-token prompts and 128 new tokens (the flash
   prefill and split-KV decode kernels), its prefill->decode consistency,
-  and a card-vs-CPU check of the same engine on the smoke config.
+  and a card-vs-CPU check of the same engine on the smoke config;
+* the paper's dense decoders and gemma2 (phase h): gemma2-9b whole with
+  prompts past its sliding window (its ring cache), gpt-neox-20b whole (head
+  dim 96) and opt-30b at 24 of its 48 layers, each through ``ServeEngine``
+  with its launches by kernel variant, prefill->decode consistency and a
+  card-vs-CPU check of its smoke config.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -141,6 +148,28 @@ RAGGED_FLASH_CASES = [
     (1, 77, 333, 4, 1, 128, "float32", True, 100, 0.0, 256),
     (1, 200, 200, 8, 8, 16, "float32", True, 0, 0.0, 0),
     (1, 64, 64, 4, 2, 64, "float32", True, 16, 0.0, 200),
+]
+# the served models' attention shapes the test shapes above lack: the
+# CUDA-core instances at gpt-neox-20b's head dim of 96 (causal, and causal
+# with a window; G = 1, 2, 4, 8) and gemma2-9b's ring decode (a full ring of
+# W = 4096 slots, hd 256, softcap 50)
+# (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
+SERVED_FLASH_CASES = [
+    (2, 256, 256, 8, 8, 96, dt, True, 0, 0.0, 0) for dt in ("bfloat16", "float32")
+] + [
+    (1, 300, 300, 8, 4, 96, dt, True, 64, 0.0, 0) for dt in ("bfloat16", "float32")
+] + [
+    (1, 77, 333, 16, 2, 96, "bfloat16", True, 100, 30.0, 256),
+]
+# (B, T, H, KV, hd, valid_len, softcap, dtype)
+SERVED_DECODE_CASES = [
+    (2, 512, 8, 8, 96, 300, 0.0, dt) for dt in ("bfloat16", "float32")
+] + [
+    (1, 1024, 16, 4, 96, 1000, 0.0, dt) for dt in ("bfloat16", "float32")
+] + [
+    (3, 256, 16, 2, 96, 77, 20.0, dt) for dt in ("bfloat16", "float32")
+] + [
+    (4, 4096, 16, 8, 256, 4096, 50.0, "bfloat16"),  # gemma2-9b's full ring
 ]
 ATTN_TOL = {"bfloat16": 3e-2, "float32": 2e-5}  # tests/test_kernels.py's
 
@@ -289,7 +318,12 @@ def counts() -> dict:
 
 def compare_close(got, want, tol: float, label: str) -> float:
     """|got - want| <= tol + tol * |want| elementwise (assert_allclose with
-    atol = rtol = tol), both finite. Returns the max absolute gap."""
+    atol = rtol = tol), and also <= tol * (|want| + RMS of its row), where a
+    row is the last axis (one query head's output); both finite. The second
+    bound holds the gap to the output's own size: a softmax over thousands
+    of keys gives outputs of RMS ~0.03, under the first bound's atol, where
+    a kernel that drops a block of keys would pass it. Returns the max
+    absolute gap."""
     import torch
     g, w = got.float(), want.float()
     if g.shape != w.shape:
@@ -301,6 +335,12 @@ def compare_close(got, want, tol: float, label: str) -> float:
     if n_bad:
         raise AssertionError(f"{label}: {n_bad} elements beyond {tol} (max "
                              f"gap {float(gap.max()):.3e})")
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    n_bad = int((gap > tol * (w.abs() + rms)).sum())
+    if n_bad:
+        raise AssertionError(f"{label}: {n_bad} elements beyond {tol} x (|want| "
+                             f"+ its row's RMS) (max gap {float(gap.max()):.3e}, "
+                             f"least row RMS {float(rms.min()):.3e})")
     return float(gap.max())
 
 
@@ -344,15 +384,18 @@ def check_tick_cases(dev) -> None:
 
 def check_attention_cases(dev) -> None:
     """Both attention kernels against their plain versions on the card, at
-    the test shapes of tests/test_kernels.py and the ragged shapes; the
-    decode shapes in bf16 and in float32 (every instance of the CUDA-core
-    decode kernel's float32 path: G = 1, 2, 4, 8 and hd 64, 128, 256)."""
+    the test shapes of tests/test_kernels.py, the ragged shapes and the
+    served shapes (:data:`SERVED_FLASH_CASES`, :data:`SERVED_DECODE_CASES`);
+    the decode test shapes in bf16 and in float32 (every instance of the
+    CUDA-core decode kernel's float32 path: G = 1, 2, 4, 8 and hd 64, 96,
+    128, 256)."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
 
-    flash = [(*c[:10], c[2] - c[1]) for c in FLASH_CASES] + RAGGED_FLASH_CASES
+    flash = ([(*c[:10], c[2] - c[1]) for c in FLASH_CASES] + RAGGED_FLASH_CASES
+             + SERVED_FLASH_CASES)
     for i, (B, Sq, Skv, H, KV, hd, dt, causal, window, cap, q_off) in enumerate(flash):
         rng = np.random.default_rng(100 + i)
         q = randn(rng, (B, Sq, H, hd), dt, dev)
@@ -366,7 +409,8 @@ def check_attention_cases(dev) -> None:
         print(f"kernel flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
               f"hd={hd} {dt} causal={causal} window={window} softcap={cap} "
               f"q_offset={q_off}: max abs gap {gap:.3e}")
-    decode = [(*c[:7], dt) for dt in ("bfloat16", "float32") for c in DECODE_CASES]
+    decode = ([(*c[:7], dt) for dt in ("bfloat16", "float32") for c in DECODE_CASES]
+              + SERVED_DECODE_CASES)
     for i, (B, T, H, KV, hd, vl, cap, dt) in enumerate(decode):
         rng = np.random.default_rng(200 + i)
         q = randn(rng, (B, H, hd), dt, dev)
@@ -518,16 +562,18 @@ def serve_consistency(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def serve_card_vs_cpu(dev) -> None:
-    """The smoke config served in float32 on the card (the kernels) and on
-    the CPU (their plain versions) with the same weights: logits within
-    1e-4 relative and the same greedy tokens."""
+def serve_card_vs_cpu(dev, arch: str = SERVE_ARCH) -> None:
+    """``arch``'s smoke config served in float32 on the card (the kernels)
+    and on the CPU (their plain versions) with the same weights: logits
+    within 1e-4 relative and the same greedy tokens. The 40-token prompt is
+    longer than gemma2's smoke window of 16, so its ring placement and ring
+    decode run."""
     import numpy as np
     import torch
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import ServeEngine
 
-    cfg = smoke_config(SERVE_ARCH).replace(dtype=torch.float32)
+    cfg = smoke_config(arch).replace(dtype=torch.float32)
     gpu = ServeEngine(cfg, 64, 2, device="cuda", seed=3)
     cpu = ServeEngine(cfg, 64, 2, device="cpu", seed=3)
 
@@ -548,6 +594,104 @@ def serve_card_vs_cpu(dev) -> None:
           f"{rel:.3e}, 8 greedy tokens identical")
 
 
+# (h) the paper's dense decoders and gemma2 at full width, random weights
+# from seed 0 in bf16: (arch, layers served (None: all), requests, prompt
+# tokens, new tokens, the attention kernels' variant). gemma2's prompt is
+# longer than its 4096-token window, so the windowed flash mask bites, the
+# ring placement has S - W = 64 and decode wraps the ring. opt-30b is cut to
+# 24 of its 48 layers: its 60 GB of bf16 weights and the float32 draw of its
+# largest stacked leaf ([48, 7168, 28672], 39 GB) exceed the card's 80 GB.
+PAPER_SERVE = [
+    ("gemma2-9b", None, 4, 4160, 64, "cuda_core"),
+    ("gpt-neox-20b", None, 8, 1024, 32, "cuda_core"),
+    ("opt-30b", 24, 8, 1024, 32, "tensor_core"),
+]
+
+
+def serve_paper_decoders(dev) -> dict:
+    """(h) ServeEngine on each :data:`PAPER_SERVE` model at full width:
+    init, prefill and decode times, tokens/s, peak memory and launches by
+    variant of one ``generate`` (every launch on the expected variant),
+    prefill->decode consistency with the attention weights at contraction
+    fan-in (the JAX init's gap printed, not gated; :func:`serve_consistency`),
+    and the smoke config card vs CPU in float32. Returns the launches of
+    each arch's ``generate`` by kernel and variant."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import ServeEngine
+
+    rng = np.random.default_rng(0)
+    served = {}
+    for arch, layers, B, S, n_out, variant in PAPER_SERVE:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, S + n_out, B, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+        t0 = time.perf_counter()
+        full, cache = eng.prefill(eng.params, {"tokens": toks})  # first call
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        del cache
+        reset_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(tokens, n_out)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = counts()
+        by_variant = {"flash": dict(fa.flash_attention.launches_by_variant),
+                      "decode": dict(dec.decode_attention.launches_by_variant)}
+        other = "tensor_core" if variant == "cuda_core" else "cuda_core"
+        if not (launches == {"polca_tick": 0, "flash_attention": cfg.num_layers,
+                             "decode_attention": cfg.num_layers * n_out}
+                and by_variant["flash"][other] == 0 == by_variant["decode"][other]):
+            raise AssertionError(f"{arch}: generate launched {launches}, by variant "
+                                 f"{by_variant}; want every launch on {variant}")
+        if out.shape != (B, n_out) or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: bad generated tokens {out.shape}")
+        rel_init = prefill_decode_gap(eng, toks, full)
+        condition_attention(cfg, eng.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, cache = eng.prefill(eng.params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        del cache
+        rel = prefill_decode_gap(eng, toks, full)
+        if not rel < SERVE_REL_TOL:
+            raise AssertionError(f"{arch}: prefill->decode mismatch rel={rel:.3e}")
+        decode_ms = (gen_s - prefill_s) / n_out * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        served[arch] = {"layers": cfg.num_layers, **launches, "by_variant": by_variant}
+        say(f"(h) serving {arch} (full width, {cfg.num_layers}"
+            f"{'' if layers is None else ' of ' + str(get_config(arch).num_layers)} "
+            f"layers, hd {cfg.head_dim}, random weights seed 0, bf16): init "
+            f"{init_s:.2f} s, weights {weights_gb:.2f} GB; {B} x {S}-token prompts, "
+            f"{n_out} new tokens: prefill {prefill_s:.4f} s (first call "
+            f"{first_s:.4f} s), generate {gen_s:.3f} s, decode {decode_ms:.3f} "
+            f"ms/token step (derived: (generate - prefill) / {n_out}), "
+            f"{B * n_out / gen_s:.1f} output tokens/s; peak memory {peak_gb:.2f} "
+            f"GB; launches {launches} (by variant {by_variant}); "
+            f"prefill->decode rel gap {rel:.3e} < {SERVE_REL_TOL} with attention "
+            f"weights at contraction fan-in, {rel_init:.3e} with the JAX init "
+            f"(not gated); sample {out[0, :8].tolist()}")
+        del eng, full, toks
+        torch.cuda.empty_cache()
+    for arch, *_ in PAPER_SERVE:
+        serve_card_vs_cpu(dev, arch)
+    return served
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple:
     """(least milliseconds, what bounds it): the larger of bf16 operations
     at the tensor-core peak and bytes at the HBM rate."""
@@ -556,10 +700,61 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int) -> dict:
-    """The flash kernel at one bf16 causal prefill shape: device time, call
-    time, its plain version's and scaled_dot_product_attention's device
-    times (a yardstick the port never calls), the bound and the error."""
+_FLEX = {}  # the compiled flex_attention, made on first use
+
+
+def flex_library(softcap: float, *, window: int = 0, valid_len=None, Sq: int, Skv: int,
+                 dev):
+    """PyTorch's one call for attention with a logit softcap, which
+    scaled_dot_product_attention lacks: ``flex_attention`` compiled (its
+    documented use), with score_mod ``cap * tanh(s / cap)`` and a block mask
+    of the causal window (prefill, ``valid_len`` None) or of the first
+    ``valid_len`` keys (decode, ``Sq`` = 1). Returns ``fn(q, k, v)`` on
+    ``[B, heads, seq, hd]`` tensors (GQA by ``enable_gqa``); the default
+    scale is the kernels' ``hd ** -0.5``. A yardstick the port never calls."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+
+    def score_mod(s, b, h, qi, kv):
+        return softcap * torch.tanh(s / softcap)
+
+    if valid_len is None:
+        def mask_mod(b, h, qi, kv):
+            keep = kv <= qi
+            return keep & (qi - kv < window) if window else keep
+    else:
+        def mask_mod(b, h, qi, kv):
+            return kv < valid_len
+    block_mask = create_block_mask(mask_mod, None, None, Sq, Skv, device=dev)
+    return lambda q, k, v: _FLEX["fn"](q, k, v, score_mod=score_mod,
+                                       block_mask=block_mask, enable_gqa=True)
+
+
+def library_rows(row: dict, softcap: float, sdpa_ms: float, flex_ms, flex_err) -> str:
+    """Fill ``row``'s library keys: with a softcap, ``library_ms`` is
+    flex_attention's time (the same function) and ``library_no_softcap_ms``
+    scaled_dot_product_attention's on the same inputs without the softcap;
+    else ``library_ms`` is scaled_dot_product_attention's. Returns the text
+    for the printed line."""
+    if not softcap:
+        row["library_ms"] = sdpa_ms
+        return f"scaled_dot_product_attention {sdpa_ms:.5f} ms"
+    row.update(library_ms=flex_ms, library_no_softcap_ms=sdpa_ms,
+               library_max_abs_err=flex_err)
+    return (f"flex_attention with the softcap {flex_ms:.5f} ms (max abs gap to the "
+            f"plain version {flex_err:.3e}), scaled_dot_product_attention "
+            f"without it {sdpa_ms:.5f} ms")
+
+
+def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
+               window: int = 0, softcap: float = 0.0, calls: int = 20) -> dict:
+    """The flash kernel at one bf16 causal prefill shape, held against its
+    plain version: device time, call time, the plain version's and the
+    library's device times (:func:`library_rows`; a window goes to
+    scaled_dot_product_attention as a boolean mask), the bound and the
+    error."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -567,76 +762,114 @@ def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int) -> dict:
     q = randn(rng, (B, S, H, hd), "bfloat16", dev)
     k = randn(rng, (B, S, KV, hd), "bfloat16", dev)
     v = randn(rng, (B, S, KV, hd), "bfloat16", dev)
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    label = f"flash B={B} S={S} H={H} KV={KV} hd={hd} window={window} softcap={softcap}"
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = compare_close(got, want, ATTN_TOL["bfloat16"], f"flash B={B} S={S} hd={hd}")
-    del got, want
+    err = compare_close(got, want, ATTN_TOL["bfloat16"], label)
+    del got
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kernel = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    flex_ms = flex_err = None
+    if softcap:
+        flex = flex_library(softcap, window=window, Sq=S, Skv=S, dev=dev)
+        flex_err = compare_close(flex(qt, kt, vt).transpose(1, 2), want,
+                                 ATTN_TOL["bfloat16"], f"flex_attention at {label}")
+        flex_ms = device_ms([lambda: flex(qt, kt, vt)], calls=calls)
+    del want
+    lib_kw = (dict(attn_mask=fa.attention_mask(S, S, causal=True, window=window,
+                                               q_offset=0, device=dev))
+              if window else dict(is_causal=True))
+    kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    sdpa_ms = device_ms([lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **lib_kw)], calls=calls)
     row = dict(
-        ms=device_ms([kernel], calls=20),
-        call_ms=cuda_ms(kernel, reps=20),
-        plain_ms=device_ms([lambda: fa.flash_attention_plain(q, k, v, causal=True)],
+        ms=device_ms([kernel], calls=calls),
+        call_ms=cuda_ms(kernel, reps=calls),
+        plain_ms=device_ms([lambda: fa.flash_attention_plain(q, k, v, **kw)],
                            calls=3, replays=2),
-        library_ms=device_ms([lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)], calls=20),
         max_abs_err=err)
-    flops = 4 * B * H * hd * S * (S + 1) / 2
+    lib = library_rows(row, softcap, sdpa_ms, flex_ms, flex_err)
+    # attended (query, key) pairs: min(i + 1, window) for query i
+    pairs = (S * (S + 1) / 2 if not window or window >= S else
+             window * (window + 1) / 2 + (S - window) * window)
+    flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v in bf16
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
-    print(f"kernel flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal: "
+    print(f"kernel flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal "
+          f"window={window} softcap={softcap} ({fa.kernel_variant(q.dtype, hd)}): "
           f"device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms (plain version "
-          f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention "
-          f"{row['library_ms']:.4f} ms, device times; bound {row['bound_ms']:.4f} ms "
-          f"by {row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"max abs gap {err:.3e}")
+          f"{row['plain_ms']:.4f} ms, {lib}, device times; bound {row['bound_ms']:.4f} "
+          f"ms by {row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"max abs gap {err:.3e} [{CARD}]")
     return row
 
 
 DECODE_SETS = 4  # cache sets the decode timing cycles through: 100 MB > L2
 
 
-def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int) -> dict:
+def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int, *,
+                softcap: float = 0.0) -> dict:
     """The decode kernel at one bf16 shape, as :func:`time_flash`, the
     timed calls cycling through :data:`DECODE_SETS` caches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
 
     sets = [tuple(randn(rng, s, "bfloat16", dev)
                   for s in ((B, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
             for _ in range(DECODE_SETS)]
     q, k, v = sets[0]
-    got = dec.decode_attention(q, k, v, vl)
-    want = dec.decode_attention_plain(q, k, v, vl)
+    label = f"decode B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl} softcap={softcap}"
+    got = dec.decode_attention(q, k, v, vl, softcap=softcap)
+    want = dec.decode_attention_plain(q, k, v, vl, softcap=softcap)
     torch.cuda.synchronize()
-    err = compare_close(got, want, ATTN_TOL["bfloat16"], "decode main-path shape")
-    mask = (torch.arange(T, device=dev) < vl)[None, None, None, :]
+    err = compare_close(got, want, ATTN_TOL["bfloat16"], label)
     lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+    flex_ms = flex_err = None
+    if softcap:
+        flex = flex_library(softcap, valid_len=vl, Sq=1, Skv=T, dev=dev)
+        flex_err = compare_close(flex(*lib_sets[0])[:, :, 0], want,
+                                 ATTN_TOL["bfloat16"], f"flex_attention at {label}")
+        flex_ms = device_ms([lambda s=s: flex(*s) for s in lib_sets], calls=64)
+    mask = (torch.arange(T, device=dev) < vl)[None, None, None, :]
+    sdpa_ms = device_ms([lambda s=s: F.scaled_dot_product_attention(
+        *s, attn_mask=mask, enable_gqa=True) for s in lib_sets], calls=64)
     row = dict(
-        ms=device_ms([lambda s=s: dec.decode_attention(*s, vl) for s in sets], calls=64),
-        call_ms=cuda_ms(lambda: dec.decode_attention(q, k, v, vl), reps=50),
-        plain_ms=device_ms([lambda s=s: dec.decode_attention_plain(*s, vl) for s in sets],
-                           calls=8),
-        library_ms=device_ms([lambda s=s: F.scaled_dot_product_attention(
-            *s, attn_mask=mask, enable_gqa=True) for s in lib_sets], calls=64),
+        ms=device_ms([lambda s=s: dec.decode_attention(*s, vl, softcap=softcap)
+                      for s in sets], calls=64),
+        call_ms=cuda_ms(lambda: dec.decode_attention(q, k, v, vl, softcap=softcap), reps=50),
+        plain_ms=device_ms([lambda s=s: dec.decode_attention_plain(*s, vl, softcap=softcap)
+                            for s in sets], calls=8),
         max_abs_err=err)
+    lib = library_rows(row, softcap, sdpa_ms, flex_ms, flex_err)
     nbytes = 2 * (2 * B * vl * KV * hd + 2 * B * H * hd)  # valid k, v; q, o
     flops = 4 * B * H * hd * vl
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
     print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl} "
-          f"bf16: device {row['ms']:.5f} ms, call {row['call_ms']:.5f} ms (plain "
-          f"version {row['plain_ms']:.5f} ms, scaled_dot_product_attention "
-          f"{row['library_ms']:.5f} ms, device times over {DECODE_SETS} caches; bound "
-          f"{row['bound_ms']:.5f} ms by {row['bound_by']}: {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP); max abs gap {err:.3e}")
+          f"softcap={softcap} bf16 ({fa.kernel_variant(q.dtype, hd)}): device "
+          f"{row['ms']:.5f} ms, call {row['call_ms']:.5f} ms (plain version "
+          f"{row['plain_ms']:.5f} ms, {lib}, device times over {DECODE_SETS} caches; "
+          f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); max abs gap {err:.3e} [{CARD}]")
     return row
+
+
+# the phase (h) model each kernel is timed and checked at, by key of the
+# kernels JSON line: every layer of gpt-neox-20b and opt-30b; gemma2-9b's
+# LOCAL layers (windowed prefill, ring decode) and GLOBAL layers
+SERVED_TIMINGS = {"hd96": "gpt-neox-20b", "opt30b": "opt-30b",
+                  "local": "gemma2-9b", "global": "gemma2-9b"}
 
 
 def time_attention(dev, rng_seed: int = 7) -> list:
     """Both attention kernels at the serving main-path shapes (llama3.2-1b),
-    and the flash kernel also at the qwen3-8b / yi-34b head dim of 128."""
+    the flash kernel also at the qwen3-8b / yi-34b head dim of 128, and both
+    at every attention shape of phase (h) (:data:`SERVED_TIMINGS`): a
+    prefill of the served prompt, and a decode step halfway through the new
+    tokens (gemma2's LOCAL layers: its full ring of W slots), each held
+    against its plain version."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.model import cache_len
@@ -649,6 +882,21 @@ def time_attention(dev, rng_seed: int = 7) -> list:
     flash["hd128"] = time_flash(dev, rng, B, S, 32, 8, 128)
     decode = time_decode(dev, rng, B, cache_len(SERVE_PROMPT + SERVE_OUT), H, KV, hd,
                          SERVE_VALID_LEN)
+    shapes = {arch: (B, S, n_out) for arch, _, B, S, n_out, _ in PAPER_SERVE}
+    for key, arch in SERVED_TIMINGS.items():
+        c = get_config(arch)
+        B, S, n_out = shapes[arch]
+        heads = (B, S, c.num_heads, c.num_kv_heads, c.head_dim)
+        cap = c.attn_logit_softcap
+        calls = 20 if S <= 1024 else 4
+        if key == "local":
+            W = c.window_size
+            flash[key] = time_flash(dev, rng, *heads, window=W, softcap=cap, calls=calls)
+            decode[key] = time_decode(dev, rng, B, W, *heads[2:], W, softcap=cap)
+        else:
+            flash[key] = time_flash(dev, rng, *heads, softcap=cap, calls=calls)
+            decode[key] = time_decode(dev, rng, B, cache_len(S + n_out), *heads[2:],
+                                      S + n_out // 2, softcap=cap)
     flash.update(name="flash_attention",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:32")
@@ -1275,6 +1523,73 @@ def expect_refusal(call, message: str, label: str) -> None:
     check_no_tick_launch(label)
 
 
+def observe_chaos(sc, plain) -> None:
+    """(g) step 3a: ``sc`` (a chaos-* run already made as ``plain``, without
+    a recorder) under the port's ``recording()``: every count, fault record
+    and alert equals the unrecorded run's (the recorder observes, never
+    perturbs); ``write_artifacts`` of its snapshot to a temporary directory,
+    all three files read back (events equal, every counter and the
+    manifest's keys present, the manifest naming this card); and
+    ``reconstruct_incidents`` on the events read back."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.experiments.runner import run_experiment
+    from repro_torch.obs import (
+        MetricsRecorder, incidents_json, read_events, read_manifest,
+        read_prometheus, reconstruct_incidents, recording, run_manifest,
+        write_artifacts)
+
+    rec = MetricsRecorder()
+    t0 = time.perf_counter()
+    with recording(rec):
+        o = run_experiment(sc)
+    run_s = time.perf_counter() - t0
+    f, g = o.fleet, plain.fleet
+    if not ((f.n_brakes, f.n_shed_total, f.n_rebalances, f.n_offered, f.n_admitted)
+            == (g.n_brakes, g.n_shed_total, g.n_rebalances, g.n_offered, g.n_admitted)
+            and f.fault_events == g.fault_events and f.alert_events == g.alert_events
+            and np.array_equal(f.row_power_frac, g.row_power_frac)):
+        raise AssertionError(f"{sc.name}: the recorder changed the run")
+    snap = rec.snapshot()
+    manifest = run_manifest(seed=sc.seed, scenario=sc,
+                            extra={"phase": "(g) 3a", "run_s": run_s})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_artifacts(d, snap, manifest)
+        sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+        back = read_manifest(d)
+        prom = read_prometheus(paths["metrics"])
+        events = read_events(paths["events"])
+    io_s = time.perf_counter() - t0
+    card = torch.cuda.get_device_name(0)
+    n_counters = sum(len(v) for v in prom.get("counter", {}).values())
+    if not (events == snap.events and n_counters == len(snap.counters)
+            and set(back) == set(manifest) and back["device"] == card
+            and back["torch"] == torch.__version__):
+        raise AssertionError(f"{sc.name}: artifacts do not read back "
+                             f"({len(events)} of {len(snap.events)} events, "
+                             f"{n_counters} of {len(snap.counters)} counters, "
+                             f"device {back.get('device')!r})")
+    rep = reconstruct_incidents(events)
+    doc = incidents_json(rep)
+    if doc["n_incidents"] != rep.n_incidents or rep.n_events != len(events):
+        raise AssertionError(f"{sc.name}: incident report inconsistent")
+    timeline = "; ".join(
+        f"#{inc.iid} {inc.kind} on {inc.target} at {inc.t_sched:g} s: "
+        f"detected after {inc.detection_latency_s()} s "
+        f"({inc.detection_latency_ticks(doc['tick_s'])} ticks), mitigated after "
+        f"{inc.time_to_mitigation_s()} s, cleared {inc.time_to_clear_s()} s "
+        f"after restore, {len(inc.alerts)} alerts, {inc.n_brake_edges} brake "
+        f"edges" for inc in rep.incidents)
+    say(f"(g) {sc.name} under recording(): {run_s:.2f} s, counts, fault "
+        f"records and alerts equal the unrecorded run; artifacts "
+        f"{sizes} bytes written and read back in {io_s:.3f} s ({len(events)} "
+        f"events, {n_counters} counters, manifest device {back['device']!r}); "
+        f"{rep.n_incidents} incident(s), {rep.n_false_alarms} unattributed "
+        f"engage(s): {timeline}")
+
+
 def routed_fleets(dev) -> None:
     """(g) the routed-fleet families on the host at their registered width:
     (1) the batched engines refuse a routed scenario with the reference's
@@ -1366,11 +1681,13 @@ def routed_fleets(dev) -> None:
     # (3) chaos at the benchmark's quick horizon, one explicit envelope
     chaos_budget = get_scenario(CHAOS_RUNS[0]).budget
     reset_counts()
+    unrecorded = {}
     for name in CHAOS_RUNS:
         sc = get_scenario(name).with_(duration_s=CHAOS_S, budget=chaos_budget)
         t0 = time.perf_counter()
         o = run_experiment(sc)
         run_s = time.perf_counter() - t0
+        unrecorded[name] = (sc, o)
         f = o.fleet
         if not f.fault_events or f.n_admitted + f.n_shed_total != f.n_offered:
             raise AssertionError(f"{name}: no fault applied, or work lost")
@@ -1386,6 +1703,11 @@ def routed_fleets(dev) -> None:
             f"shed {f.n_shed_total}, rebalances {f.n_rebalances}; faults: "
             f"{records}; alerts by rule: {by_rule}")
     check_no_tick_launch("the chaos runs")
+
+    # (3a) the static chaos run again under the recorder, its artifacts
+    # written and read back, its incidents reconstructed from the trace
+    observe_chaos(*unrecorded[CHAOS_RUNS[0]])
+    check_no_tick_launch("the recorded chaos run")
 
     # (4) routed members on the fork pool
     pool_spec = EnsembleSpec(
@@ -1711,7 +2033,13 @@ def main() -> int:
     serve_consistency(dev)
     serve_card_vs_cpu(dev)
 
-    # 7. the attention kernels at the serving main-path shapes
+    # 6h. the paper's dense decoders and gemma2 at full width
+    t0 = time.perf_counter()
+    served = serve_paper_decoders(dev)
+    say(f"(h) paper decoders and gemma2: phase total {time.perf_counter() - t0:.2f} s")
+
+    # 7. the attention kernels at the serving main-path shapes, and at the
+    # shapes of phase (h)
     attn = time_attention(dev)
 
     kernels = [{
@@ -1736,7 +2064,10 @@ def main() -> int:
                         "launches": serve_launches[row["name"]],
                         **{k: row[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
                                                "bound_ms", "bound_by", "library_ms")},
-                        **({"hd128": row["hd128"]} if "hd128" in row else {})})
+                        "served": {arch: {"layers": v["layers"], "launches": v[row["name"]],
+                                          "by_variant": v["by_variant"][row["name"].split("_")[0]]}
+                                   for arch, v in served.items()},
+                        **{k: row[k] for k in ("hd128", *SERVED_TIMINGS) if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

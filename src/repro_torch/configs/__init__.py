@@ -2,9 +2,11 @@
 
 This port carries the paper's evaluation workload, BLOOM-176B, whose
 roofline terms set the power plane of the Table-4 mix, and the dense
-global-attention models the serving path runs: llama3.2-1b, qwen3-8b
-(qk-norm) and yi-34b (padded query heads). The other architectures come
-with the slices that port their blocks (ROADMAP Queue 1 item 8).
+decoders the serving path runs: llama3.2-1b, qwen3-8b (qk-norm), yi-34b
+(padded query heads), the paper's own gpt-neox-20b (head dim 96) and
+opt-30b, and gemma2-9b (alternating sliding-window and global layers with
+a ring-buffer cache, softcaps, post-norms, GeGLU). The other architectures
+come with the slices that port their blocks (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from repro_torch.models.config import ModelConfig
 
 ALL = {
     "bloom-176b": "bloom_176b",
+    "gemma2-9b": "gemma2_9b",
+    "gpt-neox-20b": "gpt_neox_20b",
     "llama3.2-1b": "llama3_2_1b",
+    "opt-30b": "opt_30b",
     "qwen3-8b": "qwen3_8b",
     "yi-34b": "yi_34b",
 }

@@ -40,7 +40,10 @@
 //   at the other head dims): the products on the CUDA cores. A group of
 //   lanes owns one slot (hd / 8 lanes for bf16, one 16-byte piece each); its
 //   dot products with the query heads, held in registers, are reduced by
-//   shuffles inside the group.
+//   shuffles inside the group. A group is a power of two lanes: at hd 96
+//   (12 pieces in bf16, 24 in float32) it is 16 or 32 lanes of which the
+//   last 4 or 8 idle, so that the shuffle reductions stay butterflies and
+//   a lane keeps one piece (its registers as at the other head dims).
 //
 // The block merges its warps' (m, l, acc), writes its float32 partial to
 // scratch the wrapper allocates, and bumps a per-(batch, KV head, head
@@ -238,20 +241,28 @@ __device__ void finish(const DecodeArgs& a, const Chunk& c, const float* mrg) {
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel (float32; bf16 at hd 8, 16, 32, 256)
+// CUDA-core kernel (float32; bf16 at hd 8, 16, 32, 96, 256)
 // ---------------------------------------------------------------------------
 
+constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
+
 // Work split of a head dim HD in type T: E values per 16-byte piece, LS lanes
-// per slot with PL pieces each, SPW slots per warp step, TS slots per tile
-// (a tile of K is at most 8 KB).
+// per slot (a power of two) with PL pieces each, of which the first kActive
+// lanes hold pieces (all LS but at hd 96), SPW slots per warp step, TS slots
+// per tile: a power of two, so that it divides the 64-slot split grain, with
+// a tile of K at most 8 KB (32 slots at hd 96 in bf16, 16 in float32).
 template <typename T, int HD>
 struct Plan {
   static constexpr int E = 16 / sizeof(T);
   static constexpr int kPieces = HD / E;
-  static constexpr int LS = kPieces < 32 ? kPieces : 32;
-  static constexpr int PL = kPieces / LS;
+  static_assert(HD % E == 0 && (kPieces <= 32 || kPieces % 32 == 0), "head dim");
+  static constexpr int LS = kPieces < 32 ? pow2_ceil(kPieces) : 32;
+  static constexpr int PL = (kPieces + LS - 1) / LS;
+  static constexpr int kActive = kPieces / PL;
   static constexpr int SPW = 32 / LS;
-  static constexpr int TS = 8192 / (HD * (int)sizeof(T)) < 64 ? 8192 / (HD * (int)sizeof(T)) : 64;
+  static constexpr int TS = pow2_floor(8192 / (HD * (int)sizeof(T)) < 64
+                                           ? 8192 / (HD * (int)sizeof(T)) : 64);
   static constexpr int kTileBytes = TS * HD * sizeof(T);  // one K or V tile
   static constexpr int kAlign = 128;                      // TMA destinations
 };
@@ -278,15 +289,18 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // this lane's pieces of the query heads, in float32
+  // this lane's pieces of the query heads, in float32; an idle lane (pos >=
+  // kActive, only at hd 96) holds zeros and reads no piece of the cache
   const int slot = lane / LS, pos = lane % LS;  // slot of the warp step, piece index
+  const bool active = P::kActive == LS || pos < P::kActive;
   float qr[GC][PL * E];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     const T* qh = static_cast<const T*>(a.q) + c.b * a.q_sb +
-                  (long long)(c.kvh * a.G + c.g0 + min(g, c.gn - 1)) * a.q_sh + pos * PL * E;
+                  (long long)(c.kvh * a.G + c.g0 + min(g, c.gn - 1)) * a.q_sh +
+                  (active ? pos : 0) * PL * E;
 #pragma unroll
-    for (int e = 0; e < PL * E; ++e) qr[g][e] = g < c.gn ? to_float(qh[e]) : 0.f;
+    for (int e = 0; e < PL * E; ++e) qr[g][e] = g < c.gn && active ? to_float(qh[e]) : 0.f;
   }
 
   // this warp's online softmax over the slots it reads; l and acc hold this
@@ -330,6 +344,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int g = 0; g < GC; ++g) sc[st][g] = 0.f;
 #pragma unroll
       for (int p = 0; p < PL; ++p) {
+        if (!active) break;
         float x[E];
         unpack(*reinterpret_cast<const uint4*>(ks + (jr[st] * P::kPieces + pos * PL + p) * 16),
                x, T());
@@ -380,6 +395,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int st = 0; st < STEPS; ++st)
 #pragma unroll
       for (int p = 0; p < PL; ++p) {
+        if (!active) break;
         float x[E];
         unpack(*reinterpret_cast<const uint4*>(vs + (jr[st] * P::kPieces + pos * PL + p) * 16),
                x, T());
@@ -404,7 +420,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < PL * E; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
     }
-    if (slot == 0 && g < c.gn) {
+    if (slot == 0 && g < c.gn && active) {
       float* w = mrg + (warp * a.group + g) * (HD + 2);
 #pragma unroll
       for (int e = 0; e < PL * E; ++e) w[pos * PL * E + e] = acc[g][e];
@@ -672,6 +688,7 @@ int dispatch(const Cache& kv, DecodeArgs a, int B, int hd, cudaStream_t stream) 
     case 64:
       if constexpr (f32) return launch_cuda_core<T, 64>(kv, a, B, stream);
       break;
+    case 96: return launch_cuda_core<T, 96>(kv, a, B, stream);
     case 128:
       if constexpr (f32) return launch_cuda_core<T, 128>(kv, a, B, stream);
       break;

@@ -295,6 +295,7 @@ int dispatch(FlashArgs a, int B, int hd, cudaStream_t stream) {
     case 64:
       if constexpr (f32) return launch<T, 64>(a, B, stream);
       break;
+    case 96: return launch<T, 96>(a, B, stream);  // NC = 3 columns a lane
     case 128:
       if constexpr (f32) return launch<T, 128>(a, B, stream);
       break;

@@ -34,7 +34,7 @@ from repro_torch.kernels import _build
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # 96: gpt-neox-20b (CUDA-core kernels)
 MAX_GROUP = 32  # query heads per KV head the kernels take
 TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernels (bf16)
 COPY_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides

@@ -2,10 +2,12 @@
 port of ``repro.launch.serve``).
 
 The engine exposes the two phases the paper characterizes (prompt = a
-compute spike, token = a flat memory-bound draw). ``--report-power`` prints
+compute spike, token = a flat memory-bound draw). ``--report-power`` logs
 the Figure-4-style phase profile of the served model from the analytic
 power model POLCA's simulator uses: the paper's modelled A100 server, not a
-measurement of the card this runs on.
+measurement of the card this runs on. The launcher's lines go to stderr
+through the shared logger (:mod:`repro_torch.obs.log`), as the reference's
+do; stdout stays clean.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 8 --prompt 1024 --out-tokens 128 --report-power
@@ -27,15 +29,19 @@ from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.param import init_params
+from repro_torch.obs.log import get_logger
+
+log = get_logger(__name__)
 
 
 class ServeEngine:
     """Greedy serving of ``batch`` sequences of up to ``max_len`` tokens.
 
     Parameters are drawn from ``seed`` on ``device`` (the CUDA card unless
-    ``device="cpu"``) and kept with every weight but the norm scales in the
-    activation dtype (:func:`~repro_torch.models.model.cast_weights`);
-    ``params`` may be replaced by any tree of the same layout, such as
+    ``device="cpu"``), each leaf cast as it is drawn, so that every weight
+    but the norm scales is kept in the activation dtype
+    (:func:`~repro_torch.models.model.cast_weights`); ``params`` may be
+    replaced by any tree of the same layout, such as
     :func:`~repro_torch.models.model.load_jax_params`'s."""
 
     def __init__(self, cfg, max_len: int, batch: int, device="cuda", seed: int = 0):
@@ -43,8 +49,8 @@ class ServeEngine:
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self.params = model_mod.cast_weights(
-            cfg, init_params(model_mod.model_specs(cfg), gen))
+        self.params = init_params(
+            model_mod.cast_weights(cfg, model_mod.model_specs(cfg)), gen)
         self.prefill = build_prefill_step(cfg, ShapeConfig("serve", max_len, batch, "prefill"))
         self.decode = build_decode_step(cfg)
 
@@ -76,7 +82,7 @@ def main(argv=None):
 
     if args.model_par != 1:
         raise NotImplementedError("--model-par > 1: tensor parallelism waits "
-                                  "for ROADMAP Queue 1 item 8")
+                                  "for ROADMAP Queue 1 item 4")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     max_len = args.prompt + args.out_tokens
     eng = ServeEngine(cfg, max_len, args.requests, device=args.device)
@@ -86,20 +92,20 @@ def main(argv=None):
     t0 = time.perf_counter()
     out = eng.generate(tokens, args.out_tokens)
     dt = time.perf_counter() - t0
-    print(f"served batch={args.requests} prompt={args.prompt} out={args.out_tokens} "
-          f"on {eng.device} in {dt:.2f}s ({dt / args.out_tokens * 1e3:.1f} ms/token step)")
-    print("sample output tokens:", out[0, :16])
+    log.info(f"served batch={args.requests} prompt={args.prompt} out={args.out_tokens} "
+             f"on {eng.device} in {dt:.2f}s ({dt / args.out_tokens * 1e3:.1f} ms/token step)")
+    log.info("sample output tokens: %s", out[0, :16])
 
     if args.report_power:
         # Figure-4-style phase profile from the shared workload/power model
         server = ServerPower(A100)
         full = get_config(args.arch)
         t = request_timing(full, args.prompt, args.requests, server)
-        print(f"[power, modelled A100 server] {full.name}: prompt phase "
-              f"{t.t_prefill:.3f}s @ {t.prefill_point.power_at(server, 1.0):.0f}W "
-              f"(compute-bound u_c={t.prefill_point.u_compute:.2f}) | token phase "
-              f"{t.t_token * 1e3:.1f}ms/tok @ {t.token_point.power_at(server, 1.0):.0f}W "
-              f"(memory-bound u_m={t.token_point.u_memory:.2f})")
+        log.info(f"[power, modelled A100 server] {full.name}: prompt phase "
+                 f"{t.t_prefill:.3f}s @ {t.prefill_point.power_at(server, 1.0):.0f}W "
+                 f"(compute-bound u_c={t.prefill_point.u_compute:.2f}) | token phase "
+                 f"{t.t_token * 1e3:.1f}ms/tok @ {t.token_point.power_at(server, 1.0):.0f}W "
+                 f"(memory-bound u_m={t.token_point.u_memory:.2f})")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Attention: GQA, sliding-window prefill, logit softcap, qk-norm (PyTorch
-port of ``repro.models.attention``).
+"""Attention: GQA, sliding-window prefill and ring-buffer decode, logit
+softcap, qk-norm (PyTorch port of ``repro.models.attention``).
 
 The JAX model attends through its XLA path (``_chunk_scores``) and leaves
 the Pallas kernels to the TPU target. The port does what the JAX package
@@ -19,8 +19,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.param import ParamSpec
 
-NOT_PORTED = ("waits for ROADMAP Queue 1 item 8 (serving beyond dense "
-              "global attention)")
+NOT_PORTED = ("waits for ROADMAP Queue 1 item 4 (serving beyond dense "
+              "attention decoders)")
 
 
 def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -92,10 +92,12 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
     K/V are written into the cache *in place*, where the JAX function
     returns an updated copy through ``dynamic_update_slice``: the cache is
     the only copy of that state, so nothing is lost, and a full cache copy
-    per layer and step is saved. Returns (y [B,1,D], cache_k, cache_v).
+    per layer and step is saved. A ``window`` W makes no difference here:
+    the served model takes this path for a LOCAL block only when its cache
+    is shorter than W (``max_len < W``), so ``pos < W`` and the JAX mask
+    ``t > pos - W`` keeps every slot ``0 .. pos``. Returns (y [B,1,D],
+    cache_k, cache_v).
     """
-    if window:
-        raise NotImplementedError(f"sliding-window decode {NOT_PORTED}")
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = _project_q(cfg, p, x, positions)
@@ -108,5 +110,28 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
 
 
 def decode_ring_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
-                          pos, window: int):
-    raise NotImplementedError(f"ring-buffer decode of LOCAL layers {NOT_PORTED}")
+                          pos: int, window: int):
+    """Single-token decode against a ring-buffer KV cache of ``window`` = W
+    slots (a LOCAL block's), in place.
+
+    The new token's K/V (RoPE applied at its absolute position ``pos``
+    before caching, so the ring's rotation is transparent) go to slot
+    ``pos mod W``. The JAX function then masks slot i by the absolute
+    position it holds, ``pos - ((pos - i) mod W)``, attending it iff that is
+    in ``[0, pos]``: every slot once ``pos >= W``, slots ``i <= pos`` before.
+    So the valid slots are exactly ``i < valid_len = min(pos + 1, W)``, and
+    since attention is a sum over keys their order does not matter: this is
+    the plain decode attention over the first ``valid_len`` slots, the same
+    kernel as :func:`decode_self_attention`. Returns (y [B,1,D], cache_k,
+    cache_v).
+    """
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = _project_q(cfg, p, x, positions)
+    k_new, v_new = _project_kv(cfg, p, x, positions)
+    slot = pos % window
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    out = ops.decode_attention(q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype),
+                               min(pos + 1, window), softcap=cfg.attn_logit_softcap)
+    return _out_proj(cfg, p, out[:, None]), cache_k, cache_v

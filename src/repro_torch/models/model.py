@@ -1,27 +1,31 @@
 """The model: parameter specs, prefill and decode (PyTorch port of
-``repro.models.model``), for dense global-attention decoders.
+``repro.models.model``), for dense decoders.
 
 Plain functions over a parameter dict, as in the JAX package. The tree has
 the JAX layout, with each block's parameters stacked over ``num_groups`` on
 a leading layer axis; the forward passes walk that axis in a Python loop
 where the JAX package scans it. The KV cache is stacked the same way,
-``{"b<i>": {"k": [L, B, T, KV, hd], "v": ...}}``, and decode updates it in
-place.
+``{"b<i>": {"k": [L, B, Tc, KV, hd], "v": ...}}``, each block with its own
+``Tc``, and decode updates it in place.
 
-This slice serves configs whose pattern is global self attention (ATTN)
-with a dense MLP. Mamba, sliding-window (LOCAL) layers, MoE, encoders and
-modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+This slice serves configs whose pattern is global (ATTN) and sliding-window
+(LOCAL) self attention with a dense MLP. A LOCAL block of window ``W`` keeps
+``min(T, W)`` cache slots, as the JAX model does; a cache of exactly ``W``
+slots is a ring (position ``p`` in slot ``p mod W``). Mamba, MoE, encoders
+and modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item
+4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.config import ATTN, LOCAL, ModelConfig
 from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.models.param import ParamSpec, tree_map_specs
 
@@ -29,8 +33,8 @@ from repro_torch.models.param import ParamSpec, tree_map_specs
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not serve."""
     missing = []
-    if any(kind != ATTN for kind in cfg.pattern):
-        missing.append(f"block kinds {sorted(set(cfg.pattern) - {ATTN})}")
+    if any(kind not in (ATTN, LOCAL) for kind in cfg.pattern):
+        missing.append(f"block kinds {sorted(set(cfg.pattern) - {ATTN, LOCAL})}")
     if cfg.moe_num_experts:
         missing.append("MoE")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
@@ -86,14 +90,19 @@ NORM_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_mlp", "post_ln_mlp",
                        "final_norm", "q_norm", "k_norm"})
 
 
-def cast_weights(cfg: ModelConfig, params, name: str = "") -> Any:
-    """``params`` with every weight except the norm scales stored in the
-    activation dtype. The model casts each such weight to that dtype where
-    it uses it, as the JAX model does, so a tree cast once computes the
-    same numbers and saves a cast of every weight on every step."""
-    if isinstance(params, dict):
-        return {k: cast_weights(cfg, v, k) for k, v in params.items()}
-    return params if name in NORM_KEYS else params.to(cfg.activation_dtype)
+def cast_weights(cfg: ModelConfig, specs, name: str = "") -> Any:
+    """The parameter specs ``specs`` with every weight except the norm
+    scales in the activation dtype. The model casts each such weight to
+    that dtype where it uses it, as the JAX model does, so weights stored
+    cast compute the same numbers and save a cast of every weight on every
+    step; ``init_params`` of these specs casts each leaf as it draws it
+    (the same values as a cast after the draw, without a float32 copy of
+    the whole model)."""
+    if isinstance(specs, dict):
+        return {k: cast_weights(cfg, v, k) for k, v in specs.items()}
+    if name in NORM_KEYS:
+        return specs
+    return dataclasses.replace(specs, dtype=cfg.activation_dtype)
 
 
 def load_jax_params(cfg: ModelConfig, tree, device="cpu") -> dict:
@@ -162,36 +171,60 @@ def cache_len(T: int) -> int:
 
 
 def cache_specs(cfg: ModelConfig, B: int, T: int) -> dict:
-    """Abstract KV cache for B sequences of up to T tokens."""
+    """Abstract KV cache for B sequences of up to T tokens: ``min(T, W)``
+    slots for a LOCAL block of window W, ``cache_len(T)`` for the others."""
     check_supported(cfg)
     KV, hd, act = cfg.num_kv_heads, cfg.head_dim, cfg.activation_dtype
-    e = {name: ParamSpec((B, cache_len(T), KV, hd), ("batch", "kv_seq", None, None),
-                         "zeros", dtype=act) for name in ("k", "v")}
-    return _stack_specs({f"b{i}": e for i in range(len(cfg.pattern))}, cfg.num_groups)
+
+    def entry(kind):
+        Tc = (min(T, cfg.window_size) if kind == LOCAL and cfg.window_size
+              else cache_len(T))
+        return {name: ParamSpec((B, Tc, KV, hd), ("batch", "kv_seq", None, None),
+                                "zeros", dtype=act) for name in ("k", "v")}
+
+    return _stack_specs({f"b{i}": entry(kind) for i, kind in enumerate(cfg.pattern)},
+                        cfg.num_groups)
+
+
+def _ring_slots(S: int, W: int, device) -> torch.Tensor:
+    """The prompt positions a W-slot ring holds after S >= W tokens, in slot
+    order: slot i holds position ``S - W + ((i - (S - W)) mod W)``, the one
+    congruent to i mod W among the last W (the JAX prefill's placement)."""
+    return S - W + torch.remainder(torch.arange(W, device=device) - (S - W), W)
 
 
 def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
     """Process the prompt ``batch["tokens"]`` [B, S]; return (last-position
-    float32 logits [B, 1, V], cache with ``max_len`` slots)."""
+    float32 logits [B, 1, V], cache). A global block's cache has
+    ``max_len`` slots. A LOCAL block of window W attends within its window;
+    when ``W <= S`` its cache is a ring of W slots holding the last W
+    positions (:func:`_ring_slots`), else it has ``min(max_len, W)`` slots."""
     check_supported(cfg)
     h = _embed_inputs(cfg, params, batch)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    shape = (cfg.num_groups, B, max_len, cfg.num_kv_heads, cfg.head_dim)
-    cache = {f"b{i}": {name: torch.zeros(shape, dtype=h.dtype, device=h.device)
-                       for name in ("k", "v")} for i in range(len(cfg.pattern))}
+    blocks, cache = [], {}  # (window, ring slot positions or None) a block
+    for i, kind in enumerate(cfg.pattern):
+        W = cfg.window_size if kind == LOCAL else 0
+        Tc = min(max_len, W) if W else max_len  # W when W <= S (<= max_len)
+        shape = (cfg.num_groups, B, Tc, cfg.num_kv_heads, cfg.head_dim)
+        blocks.append((W, _ring_slots(S, W, h.device) if W and W <= S else None))
+        cache[f"b{i}"] = {name: torch.zeros(shape, dtype=h.dtype, device=h.device)
+                          for name in ("k", "v")}
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
-        for i in range(len(cfg.pattern)):
+        for i, (W, ring) in enumerate(blocks):
             bp = gp[f"b{i}"]
             a, (k, v) = attn_mod.self_attention(
                 cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                positions=positions, causal=True, return_kv=True)
+                positions=positions, causal=True, window=W, return_kv=True)
             if cfg.use_post_norm:
                 a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
             h = h + a
-            cache[f"b{i}"]["k"][l, :, :S] = k
-            cache[f"b{i}"]["v"][l, :, :S] = v
+            if ring is not None:
+                k, v = k[:, ring], v[:, ring]
+            cache[f"b{i}"]["k"][l, :, :k.shape[1]] = k
+            cache[f"b{i}"]["v"][l, :, :v.shape[1]] = v
             h = _ffn_apply(cfg, bp, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h[:, -1:, :]), cache
@@ -199,17 +232,25 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
 
 def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
     """One decode step. token: [B, 1] int; ``pos`` a host int (the new
-    token's position); the cache is updated in place and returned.
+    token's position); the cache is updated in place and returned. A LOCAL
+    block whose cache has exactly ``window_size`` slots decodes against it
+    as a ring (:func:`~repro_torch.models.attention.decode_ring_attention`);
+    every other block against slots ``0 .. pos``.
     Returns (float32 logits [B, 1, V], cache)."""
     check_supported(cfg)
     h = params["embed"][token.long()].to(cfg.activation_dtype)
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
-        for i in range(len(cfg.pattern)):
+        for i, kind in enumerate(cfg.pattern):
             bp, bc = gp[f"b{i}"], cache[f"b{i}"]
-            y, _, _ = attn_mod.decode_self_attention(
-                cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                bc["k"][l], bc["v"][l], pos)
+            x_norm = rmsnorm(h, bp["ln_attn"], cfg.norm_eps)
+            W = cfg.window_size if kind == LOCAL else 0
+            if W and bc["k"].shape[2] == W:
+                y, _, _ = attn_mod.decode_ring_attention(
+                    cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W)
+            else:
+                y, _, _ = attn_mod.decode_self_attention(
+                    cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W)
             if cfg.use_post_norm:
                 y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
             h = h + y

@@ -53,12 +53,12 @@ def init_param(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     if spec.init != "normal":
         raise NotImplementedError(
             f"init {spec.init!r} belongs to the SSM blocks (ROADMAP Queue 1 "
-            f"item 8)")
+            f"item 4)")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale / math.sqrt(max(1, fan_in))
     x = torch.empty(spec.shape, dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * std).to(spec.dtype)
+    return x.mul_(std).to(spec.dtype)  # in place: one float32 copy of the leaf
 
 
 def init_params(tree, generator: torch.Generator) -> Any:

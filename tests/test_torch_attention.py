@@ -12,6 +12,8 @@ The same numpy inputs (from a seed) go to both sides:
   ``ref.mha_reference``;
 * a tile whose every query is past its window: zeros, as the Pallas
   kernel gives, never NaN;
+* every head dim the kernels take (``HEAD_DIMS``, gpt-neox-20b's 96
+  included), windowed and softcapped, in bf16 and float32;
 * the launch planning the kernels depend on: the (dtype, hd) -> kernel
   variant choice, the decode split plan, the TMA alignment check.
 
@@ -119,12 +121,34 @@ def test_flash_plain_fully_masked_rows_give_zero():
 # the pure-Python launch planning the CUDA kernels depend on (no card needed)
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype,tol", [(jnp.bfloat16, 3e-2), (jnp.float32, 2e-5)])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_plain_attention_at_every_head_dim(hd, dtype, tol):
+    """Both plain versions at each head dim the kernels take (96 is
+    gpt-neox-20b's), against the Pallas kernels in interpret mode and the
+    JAX references: a causal, windowed, softcapped prefill with G = 2, and
+    a softcapped decode over part of its cache."""
+    (jq, jk, jv), (q, k, v) = _inputs(
+        hd, [(2, 64, 4, hd), (2, 64, 2, hd), (2, 64, 2, hd)], dtype)
+    kw = dict(causal=True, window=24, softcap=20.0)
+    got = flash_attention_plain(q, k, v, **kw)
+    _close(got, jops.flash_attention(jq, jk, jv, block_q=32, block_k=32,
+                                     interpret=True, **kw), tol)
+    _close(got, jref.mha_reference(jq, jk, jv, **kw), tol)
+    got = decode_attention_plain(q[:, 0], k, v, 41, softcap=20.0)
+    _close(got, jops.decode_attention(jq[:, 0], jk, jv, 41, softcap=20.0,
+                                      block_k=32, interpret=True), tol)
+    _close(got, jref.decode_attention_reference(jq[:, 0], jk, jv, 41, softcap=20.0),
+           tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_kernel_variant_choice(dtype, hd):
-    """bf16 at hd 64 / 128 (every served model's heads) runs the tensor-core
-    flash and decode kernels; float32 (TF32 would break its 2e-5 contract)
-    and bf16 at the other head dims the CUDA-core kernels."""
+    """bf16 at hd 64 / 128 (llama3.2-1b, qwen3-8b, yi-34b, opt-30b) runs the
+    tensor-core flash and decode kernels; float32 (TF32 would break its
+    2e-5 contract) and bf16 at the other head dims (gpt-neox-20b's 96,
+    gemma2-9b's 256) the CUDA-core kernels."""
     want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 128)
             else "cuda_core")
     assert kernel_variant(dtype, hd) == want

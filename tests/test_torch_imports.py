@@ -199,7 +199,10 @@ def test_copied_numpy_modules_are_scanned():
             "src/repro_torch/fleet/fleet.py",
             "src/repro_torch/fleet/controller.py",
             "src/repro_torch/obs/alerts.py",
-            "src/repro_torch/obs/stream.py"} <= rel
+            "src/repro_torch/obs/stream.py",
+            "src/repro_torch/obs/export.py",
+            "src/repro_torch/obs/incidents.py",
+            "src/repro_torch/obs/log.py"} <= rel
 
 
 def test_jax_scenario_with_hierarchy_and_faults_loads():

@@ -1,7 +1,9 @@
 """The port's serving path against the JAX model, on the CPU.
 
-For the smoke configs of llama3.2-1b, qwen3-8b (qk-norm) and yi-34b
-(padded query heads), one parameter tree from JAX's ``init_params`` goes to
+For the smoke configs of llama3.2-1b, qwen3-8b (qk-norm), yi-34b (padded
+query heads), gemma2-9b (alternating sliding-window and global layers,
+softcaps, post-norms, GeGLU, tied embeddings), and the paper's gpt-neox-20b
+and opt-30b (gelu MLPs), one parameter tree from JAX's ``init_params`` goes to
 both sides as numpy arrays (``load_jax_params`` on the port's side); leaves
 that JAX initialises to zero (yi's padded ``wo``) get small numpy normals
 so that every path computes something. The JAX model runs on the Auto-axis
@@ -14,7 +16,12 @@ kernels' plain versions.
 * bfloat16 (the configs' default): prefill logits within the 0.06 relative
   bound of ``tests/test_system.py``, and prefill->decode consistency below
   0.06;
-* ``load_jax_params`` copies every leaf exactly.
+* ``load_jax_params`` copies every leaf exactly;
+* gemma2's LOCAL blocks: the prompt of S = 24 tokens is longer than the
+  smoke window of 16, so prefill places the ring (S - W = 8) and decode
+  wraps it; :func:`test_local_decode_matches_jax_every_step` decodes more
+  than twice around the ring (and once with a window longer than the cache,
+  where the block is not a ring) and compares every step's logits.
 """
 
 import jax
@@ -39,7 +46,7 @@ from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import model
 from repro_torch.models.config import ShapeConfig
 
-ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b"]
+ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b", "gemma2-9b", "gpt-neox-20b", "opt-30b"]
 B, S = 2, 24
 F32_RTOL = 1e-4
 BF16_RTOL = 0.06  # tests/test_system.py's bound
@@ -215,12 +222,85 @@ def test_param_and_cache_specs_match_jax(arch):
 
 
 def test_unsupported_configs_raise():
-    from repro_torch.models.config import LOCAL, MAMBA
+    from repro_torch.models.config import MAMBA
 
     base = smoke_config("llama3.2-1b")
-    for cfg in (base.replace(pattern=(LOCAL,)), base.replace(pattern=(MAMBA,)),
+    for cfg in (base.replace(pattern=(MAMBA,)),
                 base.replace(moe_num_experts=4, moe_top_k=2),
                 base.replace(num_encoder_layers=2),
                 base.replace(frontend="vision_stub")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
             model.model_specs(cfg)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 31])
+def test_windowed_decode_self_attention_matches_jax(pos):
+    """A decode step with a window against a plain (not ring) cache shorter
+    than the window, as the served model runs a LOCAL block whose cache has
+    ``max_len < W`` slots: a 32-slot cache, W = 48, so ``pos < W`` and JAX's
+    mask ``t > pos - W`` keeps every slot up to ``pos``; float32."""
+    from repro.models import attention as jax_attn
+    from repro_torch.models import attention as attn
+
+    jcfg, cfg = _configs("gemma2-9b", "float32")
+    p = _shared_params(jcfg)["decoder"]["b0"]["attn"]
+    p = {k: v[0] for k, v in p.items()}  # layer 0
+    rng = np.random.default_rng(pos)
+    x = rng.standard_normal((B, 1, jcfg.d_model), dtype=np.float32)
+    cache = rng.standard_normal((2, B, 32, jcfg.num_kv_heads, jcfg.head_dim),
+                                dtype=np.float32)
+    want, jk, jv = jax_attn.decode_self_attention(
+        jcfg, jax.tree.map(jnp.asarray, p), jnp.asarray(x), jnp.asarray(cache[0]),
+        jnp.asarray(cache[1]), jnp.asarray(pos, jnp.int32), window=48)
+    ck, cv = torch.from_numpy(cache[0].copy()), torch.from_numpy(cache[1].copy())
+    got, ck, cv = attn.decode_self_attention(
+        cfg, {k: torch.from_numpy(np.asarray(v)) for k, v in p.items()},
+        torch.from_numpy(x), ck, cv, pos, window=48)
+    assert _rel(np.asarray(want), _np(got)) < F32_RTOL
+    assert _rel(np.asarray(jk), _np(ck)) < F32_RTOL and _rel(np.asarray(jv), _np(cv)) < F32_RTOL
+
+
+@pytest.mark.parametrize("prompt,steps,window", [
+    (24, 40, None),  # ring placed at prefill (S - W = 8), decode wraps twice
+    (8, 36, None),  # prompt shorter than the ring: slots fill, then wrap
+    (8, 12, 1024),  # window longer than the 512-slot cache: not a ring
+])
+def test_local_decode_matches_jax_every_step(prompt, steps, window, mesh):
+    """gemma2's smoke config in float32: prefill of ``prompt`` tokens, then
+    ``steps`` decode steps of seeded tokens (the same on both sides), each
+    step's logits within 1e-4 of JAX's and the caches equal at the end. A
+    ring decode step is the plain decode attention over the first
+    ``min(pos + 1, W)`` slots (``valid_len``), which this holds to JAX's
+    mask of each slot's absolute position."""
+    jcfg, cfg = _configs("gemma2-9b", "float32")
+    if window is not None:
+        jcfg, cfg = jcfg.replace(window_size=window), cfg.replace(window_size=window)
+    W = cfg.window_size
+    assert window is not None or steps >= 2 * W  # twice around the ring
+    np_params = _shared_params(jcfg)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    params = model.load_jax_params(cfg, np_params, "cpu")
+    toks = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, prompt + steps)).astype(np.int32)
+    shape = JaxShapeConfig("t", prompt + steps, B, "prefill")
+    rules = make_rules(jcfg, shape, mesh)
+    jpf = jax.jit(jax_prefill_step(jcfg, shape, mesh, rules))
+    jdc = jax.jit(jax_decode_step(jcfg, mesh, rules))
+    pf = build_prefill_step(cfg, ShapeConfig("t", prompt + steps, B, "prefill"))
+    dc = build_decode_step(cfg)
+    with set_mesh(mesh):
+        jl, jc = jpf(jparams, {"tokens": jnp.asarray(toks[:, :prompt])})
+        pl, pc = pf(params, {"tokens": torch.as_tensor(toks[:, :prompt])})
+        assert _rel(np.asarray(jl), _np(pl)) < F32_RTOL
+        ring = W if window is None else 512
+        assert pc["b0"]["k"].shape[2] == ring and pc["b1"]["k"].shape[2] == 512
+        for i in range(steps):
+            pos = prompt + i
+            nxt = toks[:, pos:pos + 1]
+            jl, jc = jdc(jparams, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32), jc)
+            pl, pc = dc(params, torch.as_tensor(nxt), pos, pc)
+            assert _rel(np.asarray(jl), _np(pl)) < F32_RTOL, pos
+        jc = jax.tree.map(np.asarray, jc)
+    for (jpath, j), (ppath, p) in zip(_leaves(jc), _leaves(pc), strict=True):
+        assert jpath == ppath and j.shape == tuple(p.shape)
+        assert _rel(j, _np(p)) < F32_RTOL, jpath
