@@ -141,18 +141,27 @@ DECODE_CASES = [
     (1, 128, 32, 4, 64, 1, 0.0, 128),  # single valid slot
 ]
 # shapes the Pallas wrapper refuses (tiles do not divide the sequences) and
-# a tile whose every query is past its window (those rows give 0)
+# a tile whose every query is past its window (those rows give 0); the
+# tensor-core instances at hd 96 and 256 with Sq not a multiple of 128 and
+# Skv not a multiple of the 64-key tile
 # (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
 RAGGED_FLASH_CASES = [
     (2, 200, 200, 8, 2, 64, "bfloat16", True, 0, 0.0, 0),
     (1, 77, 333, 4, 1, 128, "float32", True, 100, 0.0, 256),
     (1, 200, 200, 8, 8, 16, "float32", True, 0, 0.0, 0),
     (1, 64, 64, 4, 2, 64, "float32", True, 16, 0.0, 200),
+    (2, 200, 200, 8, 8, 96, "bfloat16", True, 0, 0.0, 0),
+    (1, 77, 333, 8, 4, 96, "bfloat16", True, 100, 0.0, 256),
+    (1, 64, 64, 4, 2, 96, "bfloat16", True, 16, 0.0, 200),
+    (1, 130, 130, 8, 8, 256, "bfloat16", False, 0, 0.0, 0),
+    (2, 200, 261, 16, 2, 256, "bfloat16", True, 0, 50.0, 61),
+    (1, 64, 64, 4, 2, 256, "bfloat16", True, 16, 0.0, 200),
 ]
-# the served models' attention shapes the test shapes above lack: the
-# CUDA-core instances at gpt-neox-20b's head dim of 96 (causal, and causal
-# with a window; G = 1, 2, 4, 8) and gemma2-9b's ring decode (a full ring of
-# W = 4096 slots, hd 256, softcap 50)
+# the served models' attention shapes the test shapes above lack:
+# gpt-neox-20b's head dim of 96 (causal, and causal with a window; G = 1, 2,
+# 4, 8), gemma2-9b's hd 256 (G = 2 with its window and softcap 50 over more
+# than one key tile before the window; G = 1 and 4) and its ring decode (a
+# full ring of W = 4096 slots, hd 256, softcap 50)
 # (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
 SERVED_FLASH_CASES = [
     (2, 256, 256, 8, 8, 96, dt, True, 0, 0.0, 0) for dt in ("bfloat16", "float32")
@@ -160,6 +169,10 @@ SERVED_FLASH_CASES = [
     (1, 300, 300, 8, 4, 96, dt, True, 64, 0.0, 0) for dt in ("bfloat16", "float32")
 ] + [
     (1, 77, 333, 16, 2, 96, "bfloat16", True, 100, 30.0, 256),
+    (1, 520, 520, 16, 8, 256, "bfloat16", True, 128, 50.0, 0),
+    (1, 300, 300, 8, 8, 256, "bfloat16", True, 0, 50.0, 0),
+    (2, 200, 200, 16, 4, 256, "bfloat16", True, 0, 30.0, 0),
+    (1, 200, 200, 8, 8, 256, "float32", True, 128, 50.0, 0),
 ]
 # (B, T, H, KV, hd, valid_len, softcap, dtype)
 SERVED_DECODE_CASES = [
@@ -254,12 +267,15 @@ def device_ms(fns, calls: int, replays: int = 5) -> float:
 
 def ptxas_report(name: str) -> list:
     """One line per kernel instance of ``csrc/<name>.cu`` from its build log:
-    registers and spill bytes, as ``nvcc -Xptxas -v`` reported them."""
+    registers and spill bytes, as ``nvcc -Xptxas -v`` reported them, then
+    ptxas's performance notes (a wgmma chain it serialized)."""
     import shutil
     from repro_torch.kernels import _build
-    rows, fn, spill = [], None, ""
+    rows, fn, spill, notes = [], None, "", []
     for line in _build.build_log(name).splitlines():
-        if "Compiling entry function" in line:
+        if "Potential Performance Loss" in line:
+            notes.append(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
+        elif "Compiling entry function" in line:
             fn = line.split("'")[1]
         elif "spill stores" in line:
             spill = line.strip()
@@ -274,7 +290,7 @@ def ptxas_report(name: str) -> list:
         if len(out) == len(names):
             names = out
     return [f"ptxas {name}: {n.replace('(anonymous namespace)::', '')}: {regs}; {spill}"
-            for n, (_, regs, spill) in zip(names, rows)]
+            for n, (_, regs, spill) in zip(names, rows)] + notes
 
 
 def compare_tick(got, want, label: str) -> float:
@@ -408,7 +424,23 @@ def check_attention_cases(dev) -> None:
         gap = compare_close(got, want, ATTN_TOL[dt], f"flash case {i}")
         print(f"kernel flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
               f"hd={hd} {dt} causal={causal} window={window} softcap={cap} "
-              f"q_offset={q_off}: max abs gap {gap:.3e}")
+              f"q_offset={q_off} ({fa.kernel_variant(q.dtype, hd)}): max abs gap {gap:.3e}")
+    # a bf16 view whose head stride is not a multiple of 16 bytes: the
+    # tensor-core instances raise before any launch, never reroute
+    for hd in fa.TC_HEAD_DIMS:
+        rows = torch.zeros((1, 64, 4, hd + 4), dtype=torch.bfloat16, device=dev)
+        view = rows[..., :hd]
+        before = dict(fa.flash_attention.launches_by_variant)
+        try:
+            fa.flash_attention(view, view, view)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"flash_attention took a misaligned hd-{hd} bf16 view")
+        if fa.flash_attention.launches_by_variant != before:
+            raise AssertionError(f"flash_attention launched on a misaligned hd-{hd} view")
+    print(f"kernel flash_attention: misaligned bf16 views at hd {fa.TC_HEAD_DIMS} raise "
+          f"ValueError, no launch")
     decode = ([(*c[:7], dt) for dt in ("bfloat16", "float32") for c in DECODE_CASES]
               + SERVED_DECODE_CASES)
     for i, (B, T, H, KV, hd, vl, cap, dt) in enumerate(decode):
@@ -596,15 +628,17 @@ def serve_card_vs_cpu(dev, arch: str = SERVE_ARCH) -> None:
 
 # (h) the paper's dense decoders and gemma2 at full width, random weights
 # from seed 0 in bf16: (arch, layers served (None: all), requests, prompt
-# tokens, new tokens, the attention kernels' variant). gemma2's prompt is
-# longer than its 4096-token window, so the windowed flash mask bites, the
-# ring placement has S - W = 64 and decode wraps the ring. opt-30b is cut to
-# 24 of its 48 layers: its 60 GB of bf16 weights and the float32 draw of its
-# largest stacked leaf ([48, 7168, 28672], 39 GB) exceed the card's 80 GB.
+# tokens, new tokens, the variant each attention kernel must run: every
+# prefill on the tensor-core flash kernel; decode on the CUDA cores at hd 96
+# and 256). gemma2's prompt is longer than its 4096-token window, so the
+# windowed flash mask bites, the ring placement has S - W = 64 and decode
+# wraps the ring. opt-30b is cut to 24 of its 48 layers: its 60 GB of bf16
+# weights and the float32 draw of its largest stacked leaf ([48, 7168,
+# 28672], 39 GB) exceed the card's 80 GB.
 PAPER_SERVE = [
-    ("gemma2-9b", None, 4, 4160, 64, "cuda_core"),
-    ("gpt-neox-20b", None, 8, 1024, 32, "cuda_core"),
-    ("opt-30b", 24, 8, 1024, 32, "tensor_core"),
+    ("gemma2-9b", None, 4, 4160, 64, {"flash": "tensor_core", "decode": "cuda_core"}),
+    ("gpt-neox-20b", None, 8, 1024, 32, {"flash": "tensor_core", "decode": "cuda_core"}),
+    ("opt-30b", 24, 8, 1024, 32, {"flash": "tensor_core", "decode": "tensor_core"}),
 ]
 
 
@@ -625,7 +659,7 @@ def serve_paper_decoders(dev) -> dict:
 
     rng = np.random.default_rng(0)
     served = {}
-    for arch, layers, B, S, n_out, variant in PAPER_SERVE:
+    for arch, layers, B, S, n_out, variants in PAPER_SERVE:
         cfg = get_config(arch)
         if layers is not None:
             cfg = cfg.replace(num_layers=layers)
@@ -651,12 +685,12 @@ def serve_paper_decoders(dev) -> dict:
         launches = counts()
         by_variant = {"flash": dict(fa.flash_attention.launches_by_variant),
                       "decode": dict(dec.decode_attention.launches_by_variant)}
-        other = "tensor_core" if variant == "cuda_core" else "cuda_core"
         if not (launches == {"polca_tick": 0, "flash_attention": cfg.num_layers,
                              "decode_attention": cfg.num_layers * n_out}
-                and by_variant["flash"][other] == 0 == by_variant["decode"][other]):
+                and all(by_variant[kind][want] == launches[f"{kind}_attention"]
+                        for kind, want in variants.items())):
             raise AssertionError(f"{arch}: generate launched {launches}, by variant "
-                                 f"{by_variant}; want every launch on {variant}")
+                                 f"{by_variant}; want every launch on {variants}")
         if out.shape != (B, n_out) or not ((out >= 0) & (out < cfg.vocab_size)).all():
             raise AssertionError(f"{arch}: bad generated tokens {out.shape}")
         rel_init = prefill_decode_gap(eng, toks, full)
@@ -848,7 +882,7 @@ def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int, *,
     flops = 4 * B * H * hd * vl
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
     print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl} "
-          f"softcap={softcap} bf16 ({fa.kernel_variant(q.dtype, hd)}): device "
+          f"softcap={softcap} bf16 ({dec.kernel_variant(q.dtype, hd)}): device "
           f"{row['ms']:.5f} ms, call {row['call_ms']:.5f} ms (plain version "
           f"{row['plain_ms']:.5f} ms, {lib}, device times over {DECODE_SETS} caches; "
           f"bound {row['bound_ms']:.5f} ms by {row['bound_by']}: {nbytes / 1e6:.2f} MB, "

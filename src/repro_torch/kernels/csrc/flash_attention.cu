@@ -15,10 +15,12 @@
 // (l == 0) gives 0, as the Pallas kernel gives when it skips every block of
 // such a row, never NaN.
 //
-// Bound: operations. At the serving shapes (S = 1024, hd = 64) a block reads
-// each KV tile once for all its query rows, and the causal product is
-// 4 * B * H * hd * S(S+1)/2 flops against ~2 * B * S * (H + KV) * hd bytes:
-// hundreds of flops per byte, far above the card's ridge point.
+// Bound: operations for grouped-query heads. At the serving shapes (S =
+// 1024, hd = 64, G = 4) a block reads each KV tile once for all its query
+// rows, and the causal product is 4 * B * H * hd * S(S+1)/2 flops against
+// ~2 * B * S * (H + KV) * hd bytes: hundreds of flops per byte, far above
+// the card's ridge point. With one query head a KV head (gpt-neox-20b,
+// opt-30b) at S = 1024 the byte count bounds it.
 //
 // The TPU kernel carried m/l/acc in VMEM scratch across a sequential KV grid
 // axis. Hopper's blocks run in no order, so a block owns a tile of query
@@ -27,24 +29,39 @@
 // the strides of the native [B, S, heads, hd] layouts (no transposed copy).
 // Two kernels, chosen by (dtype, hd) in the Python wrapper:
 //
-// * flash_tc_kernel (bf16, hd 64 or 128): the tensor-core kernel. A block
-//   owns (batch, query head, 128-query tile): two consumer warpgroups of 64
-//   rows and one producer warp. The producer issues TMA loads through 4-D
+// * flash_tc_kernel (bf16, hd 64, 96, 128 or 256): the tensor-core kernel. A
+//   block owns (batch, query head, 128-query tile): two consumer warpgroups
+//   of 64 rows and a producer warpgroup, 384 threads. The producer gives up
+//   its registers (setmaxnreg.dec to 24) so that the consumers can take 240
+//   (setmaxnreg.inc), and one of its threads issues TMA loads through 4-D
 //   tensor maps over the native layouts: Q once, then K and V tiles (128
-//   keys at hd 64, 64 at hd 128) into a 4-stage ring of mbarrier-guarded
-//   buffers, 128-byte swizzled, rows past Skv zero-filled. Each consumer
-//   warpgroup runs S = Q K^T as a chain of wgmma (Q and K K-major in shared
-//   memory), the online softmax on the float32 accumulator registers (row
-//   max and sum over the four lanes that share a row), rounds P to bf16 in
-//   registers and runs O += P V as wgmma with P as the register A operand
-//   and V read MN-major from the same swizzled tile through the
-//   descriptor's transpose. The two warpgroups take turns issuing their
+//   keys at hd 64, 64 at hd 96 and 128, 32 at hd 256) into a 4-stage ring
+//   of mbarrier-guarded buffers, 128-byte swizzled, rows past Skv
+//   zero-filled. Each consumer warpgroup runs S = Q K^T as a chain of
+//   wgmma (Q and K K-major in shared memory), the online softmax on the
+//   float32 accumulator registers (row max and sum over the four lanes that
+//   share a row), rounds P to bf16 in registers and runs O += P V as wgmma
+//   with P as the register A operand and V read MN-major from the same
+//   swizzled tile through the descriptor's transpose. The two warpgroups take turns issuing their
 //   products (named barriers), S of tile i together with PV of tile i - 1,
 //   so that one warpgroup's softmax runs under the other's products and
-//   under its own PV product. The K/V re-reads of the G heads of one KV
-//   head hit L2.
+//   under its own PV product. The first and last turns are peeled off the
+//   loop, so that no wgmma sits under a branch (ptxas serializes every
+//   wgmma of a kernel with one on a divergent path). The K/V re-reads of
+//   the G heads of one KV head hit L2.
+//   hd 96 runs the hd-128 tile: its tensor maps have an inner dimension of
+//   96 and two 64-column boxes, TMA zero-fills columns 96-127 of the second
+//   (they lie past the dimension), the zero columns add exactly 0 to Q K^T
+//   and the epilogue writes the first 96 of PV's 128 columns. Device memory
+//   traffic stays at 96 columns; the tensor cores do a third more work.
+//   hd 256 needs O's 64 x 256 float32 accumulator (128 registers a
+//   thread) beside S and P: 32-key tiles keep S and P at 16 and 8
+//   registers, and shared memory (Q 64 KB, a stage 32 KB) holds 4 stages.
+//   ptxas still allocates the consumers fewer registers than this code
+//   takes unbounded, so it spills a little and runs the wgmma chains one
+//   product at a time at hd 256 (the ptxas lines chip_smoke.py prints).
 // * flash_kernel (float32, where TF32 would break the 2e-5 contract, and
-//   bf16 at the other head dims): the CUDA-core kernel. One block owns a
+//   bf16 at hd 8, 16 and 32): the CUDA-core kernel. One block owns a
 //   (batch, KV head, query tile) with the G query heads of that KV head
 //   folded into its rows; tiles are staged in shared memory as float32 and
 //   both products run as fmaf, a lane computing two keys of a 64-key tile.
@@ -284,7 +301,7 @@ int launch(FlashArgs a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// bf16 at hd 64 and 128 runs the tensor-core kernel, never this one
+// bf16 at hd 64, 96, 128 and 256 runs the tensor-core kernel, never this one
 template <typename T>
 int dispatch(FlashArgs a, int B, int hd, cudaStream_t stream) {
   constexpr bool f32 = sizeof(T) == 4;
@@ -292,14 +309,14 @@ int dispatch(FlashArgs a, int B, int hd, cudaStream_t stream) {
     case 8: return launch<T, 8>(a, B, stream);
     case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
-    case 64:
-      if constexpr (f32) return launch<T, 64>(a, B, stream);
-      break;
-    case 96: return launch<T, 96>(a, B, stream);  // NC = 3 columns a lane
-    case 128:
-      if constexpr (f32) return launch<T, 128>(a, B, stream);
-      break;
-    case 256: return launch<T, 256>(a, B, stream);
+  }
+  if constexpr (f32) {
+    switch (hd) {
+      case 64: return launch<T, 64>(a, B, stream);
+      case 96: return launch<T, 96>(a, B, stream);  // NC = 3 columns a lane
+      case 128: return launch<T, 128>(a, B, stream);
+      case 256: return launch<T, 256>(a, B, stream);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -307,38 +324,47 @@ int dispatch(FlashArgs a, int B, int hd, cudaStream_t stream) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel (bf16, hd 64 or 128)
+// The tensor-core kernel (bf16, hd 64, 96, 128 or 256)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 using namespace hopper;
 
-constexpr int kBM = 128;                   // query rows a block: two warpgroups of 64
-constexpr int kConsumers = 256;            // the two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr int kRow = 128;                  // bytes of a swizzled panel row: 64 bf16
+constexpr int kBM = 128;         // query rows a block: two warpgroups of 64
+constexpr int kConsumers = 256;  // the two consumer warpgroups
+constexpr int kRow = 128;        // bytes of a swizzled panel row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Keys a KV tile: 128 at hd 64; 64 at hd 128, so that a consumer thread's S
-// tile, the P of the tile before it and its O accumulator (64 + 32 + 64
-// registers at 128 keys) stay within the 168 registers a thread of a
-// 288-thread block can have (three warps share an SM quarter's registers).
-template <int HD>
-constexpr int block_n() {
-  return HD == 64 ? 128 : 64;
-}
+// Per head dim. Shared memory: a [rows][kTD] bf16 tile is kTD / 64 panels
+// of [rows][64], each row 128 bytes with the 128-byte swizzle TMA writes and
+// wgmma reads. Q's tile, then per stage a K tile and a V tile, then the
+// mbarriers.
+//
+// kTD: the tile's head-dim columns; hd 96 runs in a 128-column tile whose
+// last 32 columns TMA zero-fills. block_n: keys a KV tile, 128 at hd 64; 64
+// at hd 96 and 128, so that a consumer thread's S tile, the P of the tile
+// before it and its O accumulator (64 + 32 + 64 registers at 128 keys) stay
+// within the 168 registers ptxas allots a thread of a 384-thread block
+// (setmaxnreg does not raise what ptxas allots); 32 at hd 256, where O
+// alone is 128 registers and Q's 64 KB tile leaves 4 stages of 32 KB in
+// the 227 KB a block may have (64-key tiles fit only 2 stages, and spilled
+// more: slower).
+constexpr int block_n(int hd) { return hd == 64 ? 128 : hd == 256 ? 32 : 64; }
 
-// Shared memory: a [rows][hd] bf16 tile is hd / 64 panels of [rows][64], each
-// row 128 bytes with the 128-byte swizzle TMA writes and wgmma reads. Q's
-// tile, then per stage a K tile and a V tile, then the mbarriers.
 template <int HD>
 struct Cfg {
-  static constexpr int kBN = block_n<HD>();
-  static constexpr int kPanels = HD / 64;
+  static constexpr int kTD = HD == 96 ? 128 : HD;
+  static constexpr int kBN = block_n(HD);
+  static constexpr int kPanels = kTD / 64;
   static constexpr int kStages = 4;
-  static constexpr int kQBytes = kBM * HD * 2;
-  static constexpr int kTileBytes = kBN * HD * 2;
+  // the producer is a warpgroup (setmaxnreg acts on whole warpgroups) that
+  // keeps 24 registers and leaves 240 to each consumer thread:
+  // 128 x 24 + 256 x 240 <= 65536
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static constexpr int kQBytes = kBM * kTD * 2;
+  static constexpr int kTileBytes = kBN * kTD * 2;
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kDataBytes = kQBytes + kStages * kStageBytes;
   // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte period
@@ -376,6 +402,16 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// move registers between warpgroups (every thread of the warpgroup runs it)
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // named barriers shared by the two consumer warpgroups (256 threads): one
 // warpgroup syncs, the other arrives
 __device__ __forceinline__ void named_sync(int id) {
@@ -398,6 +434,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
+// Registers the next wgmma chain overwrites (its first product has scale_d
+// 0) but whose asm reads them: end their old values' live range here, so
+// that the compiler neither keeps nor spills them (writing zeros instead
+// gives it loop-invariant constants to hoist and keep)
+template <int N>
+__device__ __forceinline__ void clobber_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
+}
 
 // d[32] = A·B (scale_d 0) or d + A·B (scale_d 1): m64n64k16, A and B
 // K-major bf16 in 128-byte-swizzled shared memory
@@ -416,6 +461,22 @@ __device__ __forceinline__ void wgmma_ss_n64(
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[16] = A·B (scale_d 0) or d + A·B (scale_d 1): m64n32k16, A and B
+// K-major bf16 in 128-byte-swizzled shared memory
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -495,10 +556,56 @@ __device__ __forceinline__ void wgmma_rs_n128(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[128] += A·B: m64n256k16, A from registers (four bf16 pairs a thread,
+// the mma fragment layout), B MN-major bf16 in 128-byte-swizzled shared
+// memory (transposed by the descriptor)
+__device__ __forceinline__ void wgmma_rs_n256(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      " %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      " %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, da, db, scale_d);
+  } else if constexpr (N == 64) {
     wgmma_ss_n64(d, da, db, scale_d);
   } else {
     wgmma_ss_n128(d, da, db, scale_d);
@@ -509,8 +616,10 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a, db);
+  } else {
+    wgmma_rs_n256(d, a, db);
   }
 }
 
@@ -525,6 +634,13 @@ struct Rows {
   int pos0, pos1, wg_first, wg_last;
 };
 
+// cap * tanh(x / cap) as cap - 2 cap / (e^(2x / cap) + 1), k2 = 2 log2(e) /
+// cap: no branch (tanhf branches on |x|, a divergent branch per score), and
+// within a few float ulps of cap, the scores' own absolute rounding
+__device__ __forceinline__ float softcap_tanh(float x, float cap, float k2) {
+  return cap - __fdividef(2.f * cap, exp2f(x * k2) + 1.f);
+}
+
 // Scale, softcap and mask the scores of one KV tile (keys t0 ..), then the
 // online softmax of the thread's two rows: their new max in m, alpha the
 // factor for the accumulator, this lane's share of the row sum in l, and
@@ -536,17 +652,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m)[2]
   // masking only on tiles that cross an edge for some row of the warpgroup
   const bool edge = t0 + kBN > a.Skv || (a.causal && t0 + kBN - 1 > rows.wg_first) ||
                     (a.window > 0 && t0 <= rows.wg_last - a.window);
+  const float k2 = 2.f * kLog2e / a.softcap;
 #pragma unroll
   for (int e = 0; e < kBN / 2; ++e) {
-    float x = sc[e] * a.scale;
-    if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-    if (edge) {
+    const float x = sc[e] * a.scale;
+    sc[e] = a.softcap > 0.f ? softcap_tanh(x, a.softcap, k2) : x;
+  }
+  if (edge) {  // one branch a tile; the mask as selects, not a branch a score
+#pragma unroll
+    for (int e = 0; e < kBN / 2; ++e) {
       const int t = t0 + 8 * (e / 4) + 2 * (lane % 4) + (e & 1);
       const int qp = (e / 2) & 1 ? rows.pos1 : rows.pos0;
-      if (!(t < a.Skv && (!a.causal || t <= qp) && (a.window <= 0 || t > qp - a.window)))
-        x = kNegInf;
+      const bool ok =
+          (t < a.Skv) & (!a.causal | (t <= qp)) & ((a.window <= 0) | (t > qp - a.window));
+      sc[e] = ok ? sc[e] : kNegInf;
     }
-    sc[e] = x;
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -575,12 +695,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m)[2]
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, TcArgs a) {
   using C = Cfg<HD>;
-  constexpr int kBN = C::kBN;
+  constexpr int kBN = C::kBN, kTD = C::kTD;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t kv_s = q_s + C::kQBytes;      // stage s: K at + s * kStageBytes, V after it
@@ -607,7 +727,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues every load
+  if (threadIdx.x >= kConsumers) {  // the producer: one thread issues every load
+    reg_dealloc<C::kProducerRegs>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(q_bar, C::kQBytes);
 #pragma unroll
@@ -631,94 +752,118 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // a consumer thread: warpgroup wg owns block rows wg*64 .. wg*64+63; this
   // thread holds rows r and r + 8 of them (the wgmma accumulator layout)
+  reg_alloc<C::kConsumerRegs>();
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int r = wg * 64 + warp * 16 + lane / 4;
   const Rows rows{a.q_offset + q0 + r, a.q_offset + q0 + r + 8, a.q_offset + q0 + wg * 64,
                   a.q_offset + min(q0 + wg * 64 + 64, a.Sq) - 1};
   const uint32_t q_wg = q_s + wg * 64 * kRow;
 
-  float o[HD / 2];
+  float o[kTD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kTD / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
   float sc[kBN / 2];  // S of the newest tile: sc[4j + 2h + c] is row r + 8h,
                       // key t0 + 8j + 2 (lane % 4) + c
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
   uint32_t pa[kBN / 16][4];  // P of the tile before it, the A fragments of its k16 steps
+
+  // The products of a turn, each chain committed as one group. S = Q K^T
+  // of the tile in stage `st`; O += P V of the tile in stage `st`, V's
+  // [keys][hd] tile the MN-major B operand (a k16 step is 16 key rows, 2048
+  // bytes; the hd panels kBN * 128 bytes apart).
+  // Each descriptor is the tile's base descriptor plus a constant offset
+  // (in the 16-byte units of its low address field). At hd 256 the empty
+  // asm hides the base's origin, so that the compiler cannot hoist the 16
+  // loop-invariant Q descriptors (32 registers) out of the loop and spill
+  // them (without it: 244 bytes spilled, 14% slower); at hd 64 hoisting
+  // them is 1-2% faster.
+  auto issue_s = [&](int st) {
+    uint64_t dq = smem_desc(q_wg, 16, 1024), dk = smem_desc(kv_s + st * C::kStageBytes, 16, 1024);
+    if constexpr (kTD > 128) asm volatile("" : "+l"(dq), "+l"(dk));
+    clobber_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < kTD / 16; ++kk) {
+      const uint32_t k_off = (kk % 4) * 32;  // 16 columns = 32 bytes
+      wgmma_ss<kBN>(sc, dq + (((kk / 4) * kBM * kRow + k_off) >> 4),
+                    dk + (((kk / 4) * kBN * kRow + k_off) >> 4), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int st) {
+    uint64_t dv = smem_desc(kv_s + st * C::kStageBytes + C::kTileBytes, kBN * kRow, 1024);
+    if constexpr (kTD > 128) asm volatile("" : "+l"(dv));
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs<kTD>(o, pa[kk], dv + ((kk * 16 * kRow) >> 4));
+    wgmma_commit();
+  };
+  // P in bf16 as the A fragments of the k16 steps over the tile's keys
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
 
   // Issue order: the two consumer warpgroups take turns (named barriers 1
   // and 2), each issuing its products for a tile together: S of tile i and
   // O += P V of tile i - 1. While one warpgroup's products run, the other
   // runs its softmax, and within a warpgroup the softmax of tile i runs
-  // under the PV product of tile i - 1.
+  // under the PV product of tile i - 1. n_tiles + 1 turns: S of tile 0; S
+  // of tile i with PV of tile i - 1; PV of the last tile. The first and
+  // last turns are peeled, so that no wgmma sits under a branch inside the
+  // loop: ptxas serializes every wgmma of a kernel whose wgmma it finds on
+  // a divergent path (C7520).
   const int my_turn = 1 + wg, their_turn = 2 - wg;
-  if (wg == 1 && n_tiles > 0) named_arrive(1);  // warpgroup 0 goes first
-
   mbar_wait(q_bar, 0);
-  // n_tiles + 1 turns: S of tile 0; S of tile i with PV of tile i - 1; PV of
-  // the last tile (warpgroup 1 leaves its last turn unpassed: none follows)
-  for (int i = 0; n_tiles > 0 && i <= n_tiles; ++i) {
-    const int s = i % C::kStages, prev = (i + C::kStages - 1) % C::kStages;
-    if (i < n_tiles) mbar_wait(full_bar + 8 * s, (i / C::kStages) & 1);
+  if (n_tiles > 0) {
+    if (wg == 1) named_arrive(1);  // warpgroup 0 goes first
+    mbar_wait(full_bar, 0);
     named_sync(my_turn);
     wgmma_fence();
-    if (i < n_tiles) {  // S = Q K^T of tile i
-      const uint32_t k_s = kv_s + s * C::kStageBytes;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t k_off = (kk % 4) * 32;  // 16 columns = 32 bytes
-        wgmma_ss<kBN>(sc, smem_desc(q_wg + (kk / 4) * kBM * kRow + k_off, 16, 1024),
-                      smem_desc(k_s + (kk / 4) * kBN * kRow + k_off, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-    }
-    if (i > 0) {  // O += P V of tile i - 1: V's [keys][hd] tile is the MN-major B
-                  // operand; a k16 step is 16 key rows (2048 bytes), the hd panels
-                  // kBN * 128 bytes apart
-      const uint32_t v_s = kv_s + prev * C::kStageBytes + C::kTileBytes;
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs<HD>(o, pa[kk], smem_desc(v_s + kk * 16 * kRow, kBN * kRow, 1024));
-      wgmma_commit();
-    }
-    if (wg == 0 || i < n_tiles) named_arrive(their_turn);
-    if (i < n_tiles) {
-      if (i > 0) {
-        wgmma_wait<1>();  // S is done; the PV product may still run
-      } else {
-        wgmma_wait<0>();
-      }
+    issue_s(0);
+    named_arrive(their_turn);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile<kBN>(sc, m, l, alpha, a, rows, kt_begin * kBN, lane);
+    pack_p();  // O is still 0: nothing to rescale
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % C::kStages, prev = (i - 1) % C::kStages;
+      mbar_wait(full_bar + 8 * st, (i / C::kStages) & 1);
+      named_sync(my_turn);
+      wgmma_fence();
+      issue_s(st);
+      issue_pv(prev);
+      named_arrive(their_turn);
+      wgmma_wait<1>();  // S is done; the PV product may still run
       fence_regs(sc);
       softmax_tile<kBN>(sc, m, l, alpha, a, rows, (kt_begin + i) * kBN, lane);
-    }
-    if (i > 0) {
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pa);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_bar + 8 * prev);  // done with tile i - 1's stage
-    }
-    if (i < n_tiles) {
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < kTD / 8; ++j) {
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
         o[4 * j + 3] *= alpha[1];
       }
-      // P in bf16 as the A fragments of the k16 steps over this tile's keys
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      pack_p();
     }
+    named_sync(my_turn);
+    wgmma_fence();
+    issue_pv((n_tiles - 1) % C::kStages);
+    if (wg == 0) named_arrive(their_turn);  // warpgroup 1's last turn: none follows
+    wgmma_wait<0>();
+    fence_regs(o);
   }
 
   // epilogue: o / l (0 for a row with no key), bf16 pairs into [B, S, H, hd]
+  // (the first hd of the tile's kTD columns)
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -749,7 +894,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
   }
   const dim3 grid(static_cast<unsigned>(a.n_qtiles), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_tc_kernel<HD><<<grid, kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
+  flash_tc_kernel<HD><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -757,7 +902,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 
 // Launch the CUDA-core kernel on `stream` (PyTorch's current stream) of CUDA
 // device `device`. dtype 0 is float32, 1 is bfloat16 (q, k, v and o share
-// it; bf16 at hd 64 or 128 is the tensor-core kernel's, and refused here).
+// it; bf16 at hd 64, 96, 128 and 256 is the tensor-core kernel's, and
+// refused here).
 // Strides are in elements and the head dimension is contiguous. Returns
 // cudaGetLastError() after the launch (0 on success); the kernel runs
 // asynchronously and a fault during the run shows at the next
@@ -782,11 +928,11 @@ extern "C" int flash_attention_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// Launch the tensor-core kernel (bf16, hd 64 or 128) on `stream` of CUDA
-// device `device`. Strides are in elements, the head dimension is contiguous;
-// the base addresses and every other stride must be multiples of 16 bytes
-// (TMA). Returns 0 on success, cudaGetLastError() after a refused launch,
-// or minus the driver's CUresult when a tensor map cannot be encoded.
+// Launch the tensor-core kernel (bf16, hd 64, 96, 128 or 256) on `stream` of
+// CUDA device `device`. Strides are in elements, the head dimension is
+// contiguous; the base addresses and every other stride must be multiples of
+// 16 bytes (TMA). Returns 0 on success, cudaGetLastError() after a refused
+// launch, or minus the driver's CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
@@ -795,14 +941,17 @@ extern "C" int flash_attention_tc_launch(
     float softcap, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (KV < 1 || H % KV != 0 || H > 65535 || B > 65535 || (hd != 64 && hd != 128))
+  if (KV < 1 || H % KV != 0 || H > 65535 || B > 65535 ||
+      (hd != 64 && hd != 96 && hd != 128 && hd != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaSuccess);
   CUtensorMap tq, tk, tv;
-  // 64-column boxes of 128-byte rows, swizzled as wgmma reads them
+  // 64-column boxes of 128-byte rows, swizzled as wgmma reads them; at hd 96
+  // the second box of a row reaches past the inner dimension, and TMA fills
+  // its last 32 columns with zeros
   constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  const int bn = hd == 64 ? tc::block_n<64>() : tc::block_n<128>();
+  const int bn = tc::block_n(hd);
   int r = hopper::encode_map(&tq, bf16, 2, q, B, Sq, H, hd, q_sb, q_ss, q_sh, 64, tc::kBM, sw);
   if (r == 0)
     r = hopper::encode_map(&tk, bf16, 2, k, B, Skv, KV, hd, k_sb, k_ss, k_sh, 64, bn, sw);
@@ -812,6 +961,10 @@ extern "C" int flash_attention_tc_launch(
   const tc::TcArgs a{o,      o_sb,   o_ss,   o_sh,     Sq,    Skv,    H / KV,
                      (Sq + tc::kBM - 1) / tc::kBM, causal, window, q_offset, scale, softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return tc::launch<64>(tq, tk, tv, a, B, H, s);
-  return tc::launch<128>(tq, tk, tv, a, B, H, s);
+  switch (hd) {
+    case 64: return tc::launch<64>(tq, tk, tv, a, B, H, s);
+    case 96: return tc::launch<96>(tq, tk, tv, a, B, H, s);
+    case 128: return tc::launch<128>(tq, tk, tv, a, B, H, s);
+  }
+  return tc::launch<256>(tq, tk, tv, a, B, H, s);
 }

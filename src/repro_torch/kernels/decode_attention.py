@@ -12,7 +12,7 @@ together and an optional tanh logit softcap; the numerics are those of
   on CUDA tensors: one grid over chunks of the valid slots
   (:func:`split_plan`) whose last block per (batch, KV head) combines the
   chunks' partials, on the tensor cores for bf16 at hd 64 or 128 and on the
-  CUDA cores otherwise (``flash_attention.kernel_variant``). One count in
+  CUDA cores otherwise (:func:`kernel_variant`). One count in
   ``decode_attention.launches`` per call, and one in
   ``decode_attention.launches_by_variant``.
 
@@ -29,8 +29,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (
-    DTYPES, _attend_plain, check_aligned, check_attention_inputs, kernel_variant)
+    DTYPES, _attend_plain, check_aligned, check_attention_inputs)
 
+TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core decode kernel (bf16)
 SPLIT_GRAIN = 64  # slots: a multiple of every tile length of the kernel (<= 64)
 BLOCKS_PER_SM = 2  # chunks in flight per SM the split plan aims at
 HEADS_PER_BLOCK = 8  # query heads a block takes (csrc kMaxHeads)
@@ -41,6 +42,14 @@ def decode_attention_plain(q, k, v, valid_len: int, *, softcap: float = 0.0):
     slots t < valid_len attend. Returns [B, H, hd]."""
     mask = (torch.arange(k.shape[1], device=q.device) < valid_len)[None, :]
     return _attend_plain(q[:, None], k, v, mask, softcap)[:, 0]
+
+
+def kernel_variant(dtype: torch.dtype, hd: int) -> str:
+    """The decode kernel a CUDA call runs: ``"tensor_core"`` (mma.sync) for
+    bf16 at hd 64 or 128, ``"cuda_core"`` (float32 fmaf) for float32 and
+    for bf16 at the other head dims. A static choice between two
+    hand-written kernels, not a fallback."""
+    return "tensor_core" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,8 +7,8 @@ wrapper (port of ``repro.kernels.flash_attention``).
   holds the kernel against it.
 * :func:`flash_attention` launches a hand-written kernel of
   ``csrc/flash_attention.cu`` on CUDA tensors: the tensor-core kernel
-  (wgmma, TMA) for bf16 at hd 64 or 128, the CUDA-core kernel otherwise
-  (:func:`kernel_variant`). It counts launches in
+  (wgmma, TMA) for bf16 at hd 64, 96, 128 and 256, the CUDA-core kernel
+  otherwise (:func:`kernel_variant`). It counts launches in
   ``flash_attention.launches`` and, by variant, in
   ``flash_attention.launches_by_variant``.
 
@@ -34,9 +34,9 @@ from repro_torch.kernels import _build
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # 96: gpt-neox-20b (CUDA-core kernels)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # 96: gpt-neox-20b; 256: gemma2-9b
 MAX_GROUP = 32  # query heads per KV head the kernels take
-TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernels (bf16)
+TC_HEAD_DIMS = (64, 96, 128, 256)  # head dims of the tensor-core flash kernel (bf16)
 COPY_ALIGN = 16  # bytes: TMA's alignment of base addresses and strides
 
 
@@ -109,11 +109,11 @@ def _entry(variant: str):
 
 
 def kernel_variant(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a CUDA call of either attention wrapper runs:
-    ``"tensor_core"`` (wgmma / mma products) for bf16 at hd 64 or 128,
-    ``"cuda_core"`` (float32 fmaf) for float32, whose 2e-5 contract TF32
-    would break, and for bf16 at the other head dims. A static choice
-    between two hand-written kernels, not a fallback."""
+    """The flash kernel a CUDA call runs: ``"tensor_core"`` (wgmma) for
+    bf16 at hd 64, 96, 128 and 256 (hd 96 in a 128-column tile whose last
+    32 columns TMA zero-fills), ``"cuda_core"`` (float32 fmaf) for float32,
+    whose 2e-5 contract TF32 would break, and for bf16 at hd 8, 16 and 32.
+    A static choice between two hand-written kernels, not a fallback."""
     return "tensor_core" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "cuda_core"
 
 

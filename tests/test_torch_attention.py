@@ -14,6 +14,9 @@ The same numpy inputs (from a seed) go to both sides:
   kernel gives, never NaN;
 * every head dim the kernels take (``HEAD_DIMS``, gpt-neox-20b's 96
   included), windowed and softcapped, in bf16 and float32;
+* the identity the tensor-core kernel's hd-96 route rests on: heads
+  zero-padded from 96 to 128 columns, at scale 96^-1/2, give the unpadded
+  output in their first 96 columns and zeros after them;
 * the launch planning the kernels depend on: the (dtype, hd) -> kernel
   variant choice, the decode split plan, the TMA alignment check.
 
@@ -25,12 +28,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_kernels import DECODE_CASES, FLASH_CASES
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attention
 from repro_torch.kernels.decode_attention import (
     SPLIT_GRAIN, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
@@ -145,13 +150,50 @@ def test_plain_attention_at_every_head_dim(hd, dtype, tol):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_kernel_variant_choice(dtype, hd):
-    """bf16 at hd 64 / 128 (llama3.2-1b, qwen3-8b, yi-34b, opt-30b) runs the
-    tensor-core flash and decode kernels; float32 (TF32 would break its
-    2e-5 contract) and bf16 at the other head dims (gpt-neox-20b's 96,
-    gemma2-9b's 256) the CUDA-core kernels."""
-    want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 128)
+    """bf16 prefill at hd 64 / 96 / 128 / 256 (llama3.2-1b, gpt-neox-20b,
+    qwen3-8b, yi-34b, opt-30b, gemma2-9b) runs the tensor-core flash
+    kernel; float32 (TF32 would break its 2e-5 contract) and bf16 at the
+    test-only head dims 8 / 16 / 32 the CUDA-core kernel."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 96, 128, 256)
             else "cuda_core")
     assert kernel_variant(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_decode_kernel_variant_choice(dtype, hd):
+    """Decode keeps its own choice: the tensor-core decode kernel for bf16
+    at hd 64 / 128 only; gpt-neox-20b's 96 and gemma2-9b's 256 decode on
+    the CUDA cores."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "cuda_core")
+    assert decode_attention.kernel_variant(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.bfloat16, 3e-2), (jnp.float32, 2e-5)])
+@pytest.mark.parametrize("causal,window,softcap,q_offset", [
+    (True, 0, 0.0, 0), (True, 24, 0.0, 0), (True, 0, 30.0, 0),
+    (True, 40, 50.0, 17), (False, 0, 0.0, 0)])
+def test_hd96_zero_padded_to_128_columns(causal, window, softcap, q_offset, dtype, tol):
+    """The tensor-core kernel runs hd 96 in a 128-column tile: TMA fills
+    columns 96-127 of Q, K and V with zeros, the kernel scales by 96^-1/2
+    and writes the first 96 output columns. Zero columns add exactly 0 to
+    Q K^T and make PV's extra columns 0, so the padded heads at scale
+    96^-1/2 give the unpadded output (and zeros after it), which is JAX's
+    reference at hd 96. The plain version scales 128-column heads by
+    128^-1/2, so Q goes in multiplied by (128 / 96)^1/2 (in float32: a
+    bf16 rounding of the product would move the scores)."""
+    (jq, jk, jv), (q, k, v) = _inputs(
+        96 + window, [(2, 80, 4, 96), (2, 80 + q_offset, 2, 96), (2, 80 + q_offset, 2, 96)],
+        dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    pad = lambda t: F.pad(t, (0, 32))  # noqa: E731
+    got = flash_attention_plain(pad(q).float() * (128 / 96) ** 0.5, pad(k), pad(v),
+                                q_offset=q_offset, **kw).to(q.dtype)
+    assert got.shape == (2, 80, 4, 128)
+    assert torch.equal(got[..., 96:], torch.zeros_like(got[..., 96:]))
+    _close(got[..., :96], flash_attention_plain(q, k, v, q_offset=q_offset, **kw), tol)
+    _close(got[..., :96], jref.mha_reference(jq, jk, jv, **kw), tol)
 
 
 _MAIN_T = 1536  # the served cache length (cache_len(1024 + 128))
@@ -177,7 +219,8 @@ def test_decode_split_plan_covers_valid_slots(valid_len, rows):
         assert n == 1
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 4, 64), (1, 77, 8, 128), (3, 5, 2, 8)])
+@pytest.mark.parametrize("shape", [(2, 8, 4, 64), (1, 77, 8, 128), (3, 5, 2, 8),
+                                   (1, 77, 8, 96), (2, 33, 4, 256)])
 def test_copy_alignment_accepts_contiguous(shape):
     t = torch.zeros(shape, dtype=torch.bfloat16)
     check_aligned("flash_attention", "q", "TMA", t.stride(), t.element_size(), 256)
@@ -187,6 +230,10 @@ def test_copy_alignment_accepts_contiguous(shape):
     ((8 * 4 * 72, 4 * 72, 72 + 4, 1), 0),   # head stride of 76 bf16 = 152 bytes
     ((8 * 36, 36, 4, 1), 0),                # seq stride of 36 bf16 = 72 bytes
     ((2048, 256, 64, 1), 8),                # base 8 bytes off
+    ((8 * 4 * 100, 4 * 100, 100, 1), 0),    # hd 96 in rows of 100 bf16: head stride 200 bytes
+    ((8 * 4 * 96, 4 * 96, 96, 1), 2),       # hd 96 contiguous, base 2 bytes off
+    ((8 * 4 * 260, 4 * 260, 260, 1), 0),    # hd 256 in rows of 260 bf16: head stride 520 bytes
+    ((8 * 4 * 256 + 4, 4 * 256, 256, 1), 0),  # hd 256, batch stride 8 bytes past a multiple
 ])
 def test_copy_alignment_rejects_misaligned(strides, data_ptr):
     """A stride or base that is not a multiple of 16 bytes cannot be copied
