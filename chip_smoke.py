@@ -43,7 +43,15 @@ kernels:
   prompts past its sliding window (its ring cache), gpt-neox-20b whole (head
   dim 96) and opt-30b at 24 of its 48 layers, each through ``ServeEngine``
   with its launches by kernel variant, prefill->decode consistency and a
-  card-vs-CPU check of its smoke config.
+  card-vs-CPU check of its smoke config;
+* MoE, Mamba2/SSD and hybrid decoders (phase i): mixtral-8x7b at 16 of
+  its 32 layers with prompts past its sliding window, kimi-k2-1t-a32b at 1
+  of its 61 layers (384 experts, top-8, a shared expert) and mamba2-370m
+  whole (no attention kernel), each through ``ServeEngine`` with its
+  launches by kernel variant, prefill->decode consistency (where MoE
+  routing flips, with the full prefill's expert choices), one MoE or SSD block's
+  time split into its steps, and the mixtral, kimi-k2, mamba2 and jamba
+  smoke configs card vs CPU.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -548,6 +556,8 @@ def condition_attention(cfg, params) -> None:
     product's contraction dims (D for wq/wk/wv, H * hd for wo)."""
     D, H, KV = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads
     for blk in params["decoder"].values():
+        if "attn" not in blk:  # a Mamba2 block
+            continue
         a = blk["attn"]
         a["wq"].mul_((H / D) ** 0.5)
         a["wk"].mul_((KV / D) ** 0.5)
@@ -642,24 +652,268 @@ PAPER_SERVE = [
 ]
 
 
-def serve_paper_decoders(dev) -> dict:
-    """(h) ServeEngine on each :data:`PAPER_SERVE` model at full width:
-    init, prefill and decode times, tokens/s, peak memory and launches by
-    variant of one ``generate`` (every launch on the expected variant),
-    prefill->decode consistency with the attention weights at contraction
-    fan-in (the JAX init's gap printed, not gated; :func:`serve_consistency`),
-    and the smoke config card vs CPU in float32. Returns the launches of
-    each arch's ``generate`` by kernel and variant."""
+# (i) MoE, Mamba2/SSD and hybrid decoders at full width, random weights from
+# seed 0 in bf16: (arch, layers served (None: all), requests, prompt tokens,
+# new tokens, the variant each attention kernel must run, None for an
+# attention-free model). Widths are published; depth is cut only as far as
+# one card forces. mixtral-8x7b: 16 of 32 layers (2.90 GB of bf16 weights a
+# layer; the float32 draw of its last stacked expert leaf, [16, 8, 4096,
+# 14336] = 30 GB, beside the rest brings init to ~77 GB); every layer has a
+# 4096 window, so the 4160-token prompt passes it (windowed flash mask, ring
+# placement, ring decode). kimi-k2-1t-a32b: 1 of 61 layers (384 experts
+# top-8 and a shared expert: 33.8 GB of experts, 4.7 GB of embeddings).
+# mamba2-370m whole: no attention kernel, the SSD in plain PyTorch.
+# jamba-1.5-large-398b (one pattern group is ~90 GB of bf16) runs its smoke
+# config card vs CPU only.
+MOE_SSM_SERVE = [
+    ("mixtral-8x7b", 16, 4, 4160, 64, {"flash": "tensor_core", "decode": "tensor_core"}),
+    ("kimi-k2-1t-a32b", 1, 8, 1024, 32, {"flash": "tensor_core", "decode": "tensor_core"}),
+    ("mamba2-370m", None, 8, 1024, 128, None),
+]
+MOE_SSM_SMOKE = ("mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b")
+# where bf16 routing flips between the full prefill and the split path,
+# prefill->decode consistency is also gated in float32, at the published
+# widths and the depth and batch that fit the card in float32: (layers,
+# requests, prompt tokens). mixtral: 8 layers (47.4 GB), 2 prompts past
+# its window; kimi-k2: its 1 layer is 77.8 GB in float32, so 2 x 256.
+FLOAT32_CHECK = {"mixtral-8x7b": (8, 2, 4160), "kimi-k2-1t-a32b": (1, 2, 256)}
+# the largest probability margin a bf16 routing flip may cross: in bf16 an
+# MoE block's input differs between two computation orders by up to ~4% of
+# its largest entry (jamba's smoke model against JAX's), which moves a
+# float32 probability by up to ~1%; a rule that picked other experts would
+# cross margins of 0.1 and more (tests/test_torch_serve.py holds the port's
+# bf16 routing to JAX's by this bound)
+NEAR_TIE = 0.02
+
+
+@contextlib.contextmanager
+def moe_routing(forced=None):
+    """Record the top-k experts every MoE block of the port picks, in call
+    order, with its float32 probabilities ((topi, probs) a call). With
+    ``forced`` (one [T, k] choice a call) each block takes those experts
+    instead, weighted by its own probabilities of them, renormalised."""
+    import torch
+    from repro_torch.models import moe
+    real, own = moe.route, []
+
+    def route(cfg, router, x_flat):
+        topw, topi = real(cfg, router, x_flat)
+        probs = torch.softmax(x_flat.float() @ router.float(), dim=-1)
+        own.append((topi, probs))
+        if forced is not None:
+            topi = forced[len(own) - 1]
+            topw = probs.gather(-1, topi)
+            topw = topw / topw.sum(dim=-1, keepdim=True)
+        return topw, topi
+
+    moe.route = route
+    try:
+        yield own
+    finally:
+        moe.route = real
+
+
+def routing_flips(own, forced) -> tuple:
+    """(choices of ``own`` not in ``forced``, the largest probability
+    margin among them: own choice's probability minus the forced one's)."""
+    import torch
+    n_diff, margin = 0, 0.0
+    for (topi, probs), want in zip(own, forced, strict=True):
+        mine = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, topi, True)
+        theirs = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, want, True)
+        rows = (mine != theirs).any(-1)
+        n_diff += int((mine & ~theirs).sum())
+        if rows.any():
+            gap = (torch.where(mine & ~theirs, probs, 0.0).max(-1).values
+                   - torch.where(theirs & ~mine, probs, 1.0).min(-1).values)
+            margin = max(margin, float(gap[rows].max()))
+    return n_diff, margin
+
+
+def routed_gap(eng, toks) -> tuple:
+    """Prefill->decode consistency through MoE blocks: the full prefill of
+    ``toks`` (its routing recorded) against a prefill of all but the last
+    token plus one decode step of it (:func:`prefill_decode_gap`'s split
+    path). Where the split path's own expert choices differ from the full
+    prefill's (a discrete top-k flips at near ties, and a flip moves a
+    token by a whole expert's share), the split path runs again taking
+    the full prefill's choices (:func:`moe_routing`). Returns (the gap
+    gated: the split path's own when no choice differs, else the one with
+    the full prefill's choices; the split path's own gap; its choices that
+    differ; those of the run with the full prefill's choices, and their
+    largest probability margin). Without MoE blocks the first two are
+    :func:`prefill_decode_gap`'s and the rest 0."""
+    import torch
+    B, S = toks.shape
+    with moe_routing() as full_routing:
+        full, _ = eng.prefill(eng.params, {"tokens": toks})
+    choices = [topi.view(B, S, -1) for topi, _ in full_routing]
+    forced = ([c[:, :-1].reshape(B * (S - 1), -1) for c in choices]
+              + [c[:, -1] for c in choices])
+
+    def split(take=None):
+        with moe_routing(take) as routing:
+            _, cache = eng.prefill(eng.params, {"tokens": toks[:, :-1]})
+            dec, _ = eng.decode(eng.params, toks[:, -1:], S - 1, cache)
+        a, b = full[:, -1], dec[:, -1]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits")
+        return rel_gap(a, b), routing_flips(routing, forced)
+
+    rel_own, (flips_own, _) = split()
+    if not flips_own:
+        return rel_own, rel_own, 0, 0, 0.0
+    rel, (flips, margin) = split(forced)
+    return rel, rel_own, flips_own, flips, margin
+
+
+def wall_ms(fn, reps: int = 3):
+    """(last result, mean milliseconds of ``fn()`` on the host's clock,
+    synchronized before and after): for steps that read to the host."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def moe_block_split(eng, cfg, T: int, rng, dev) -> dict:
+    """One MoE block (layer 0's experts) on T random bf16 rows of unit RMS,
+    timed step by step: routing, sort/dispatch (with the group-size read to
+    the host), the row gather, the per-expert GEMMs, the combine, and the
+    whole ``moe_apply``; the GEMMs against their bound (the FLOPs of the
+    routed rows at the bf16 peak, the weights of the experts that got rows
+    at the HBM rate)."""
+    from repro_torch.models import moe
+    blk = next(b for b in eng.params["decoder"].values() if "moe" in b)
+    p = {k: v[0] for k, v in blk["moe"].items()}
+    x = randn(rng, (T, cfg.d_model), "bfloat16", dev)
+    (topw, topi), route_ms = wall_ms(lambda: moe.route(cfg, p["router"], x))
+    (sel, sizes), dispatch_ms = wall_ms(lambda: moe.dispatch(cfg, topi))
+    xs, gather_ms = wall_ms(lambda: x[sel // cfg.moe_top_k])
+    rows, gemm_ms = wall_ms(lambda: moe.expert_ffn(cfg, p, xs, sizes))
+    _, combine_ms = wall_ms(lambda: moe.combine(rows, sel, topw, topi))
+    _, whole_ms = wall_ms(lambda: moe.moe_apply(cfg, p, x[None]))
+    D, F_ = cfg.d_model, cfg.moe_d_ff
+    flops = 2 * 3 * len(sel) * D * F_
+    nbytes = 3 * D * F_ * 2 * sum(1 for n in sizes if n)
+    gemm_bound, by = bound_ms(flops, nbytes)
+    return dict(T=T, rows=len(sel), experts_used=sum(1 for n in sizes if n),
+                route_ms=route_ms, dispatch_ms=dispatch_ms, gather_ms=gather_ms,
+                gemm_ms=gemm_ms, combine_ms=combine_ms, whole_ms=whole_ms,
+                gemm_bound_ms=gemm_bound, gemm_bound_by=by)
+
+
+def ssd_block_split(eng, cfg, B: int, S: int, rng, dev) -> dict:
+    """One Mamba2 block (layer 0) on random bf16 inputs of unit RMS: its
+    prefill over [B, S] split into the projections, the three causal
+    convolutions, the chunked SSD (:func:`~repro_torch.models.ssm.
+    ssd_chunked`) and the gate/norm/out projection, and the whole
+    ``ssm_forward``; its decode step of B tokens split into the
+    projections, the convolutions and the rest (recurrence and gate/out)."""
+    import torch
+    from repro_torch.models import ssm
+    blk = next(b for b in eng.params["decoder"].values() if "ssm" in b)
+    p = {k: v[0] for k, v in blk["ssm"].items()}
+    d_in, H, G, N = ssm.ssm_dims(cfg)
+    P, Q = cfg.ssm_headdim, min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise AssertionError(f"the split takes S a multiple of the chunk, not {S}")
+    x = randn(rng, (B, S, cfg.d_model), "bfloat16", dev)
+    (z, xin, Bm, Cm, dt), proj_ms = wall_ms(lambda: ssm._project(cfg, p, x))
+    (xin, Bm, Cm, tails), conv_ms = wall_ms(lambda: ssm._conv_all(cfg, p, xin, Bm, Cm, None))
+    A = -torch.exp(p["A_log"].float())
+    (Y, state), ssd_ms = wall_ms(lambda: ssm.ssd_chunked(
+        xin.reshape(B, S, H, P), dt, A, Bm.reshape(B, S, G, N).float(),
+        Cm.reshape(B, S, G, N).float(), p["D_skip"], Q))
+    y = Y.reshape(B, S, d_in).to(cfg.activation_dtype)
+    _, gate_ms = wall_ms(lambda: ssm._gate_out(cfg, p, y, z))
+    _, whole_ms = wall_ms(lambda: ssm.ssm_forward(cfg, p, x))
+    x1 = x[:, -1:]
+    _, dproj_ms = wall_ms(lambda: ssm._project(cfg, p, x1), reps=10)
+    z1, xi1, B1, C1, _ = ssm._project(cfg, p, x1)
+    _, dconv_ms = wall_ms(lambda: ssm._conv_all(cfg, p, xi1, B1, C1, tails), reps=10)
+    _, dwhole_ms = wall_ms(lambda: ssm.ssm_decode(cfg, p, x1, state, tails), reps=10)
+    return dict(B=B, S=S, proj_ms=proj_ms, conv_ms=conv_ms, ssd_ms=ssd_ms,
+                gate_ms=gate_ms, whole_ms=whole_ms, decode_proj_ms=dproj_ms,
+                decode_conv_ms=dconv_ms, decode_ms=dwhole_ms)
+
+
+def float32_consistency(arch: str, dev) -> float:
+    """Prefill->decode consistency of ``arch`` in float32 at the shape
+    :data:`FLOAT32_CHECK` gives (published widths, attention weights at
+    contraction fan-in), gated at :data:`SERVE_REL_TOL` on the split path's
+    own routing; should a choice flip even in float32, the split path with
+    the full prefill's choices is gated and every flip must be a near tie.
+    Returns the gap gated. Its prompts come from a generator of their own
+    (seed 1), so that the served models' prompts do not depend on it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+
+    layers, B, S = FLOAT32_CHECK[arch]
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.float32)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, S + 1, B, device="cuda")
+    condition_attention(cfg, eng.params)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S)),
+                           device=dev)
+    rel, rel_own, flips_own, flips, margin = routed_gap(eng, toks)
+    if not rel < SERVE_REL_TOL:
+        raise AssertionError(f"{arch} float32: prefill->decode mismatch rel={rel:.3e}")
+    if not margin < NEAR_TIE:
+        raise AssertionError(f"{arch} float32: a routing choice differs by a margin "
+                             f"{margin:.3e} >= {NEAR_TIE}")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    say(f"(i) {arch} float32 ({layers} layers, {B} x {S}-token prompts, weights "
+        f"{weights_gb:.2f} GB, attention weights at contraction fan-in): "
+        f"prefill->decode rel gap {rel:.3e} < {SERVE_REL_TOL}; the split path's own "
+        f"routing differed from the full prefill's in {flips_own} expert choices"
+        + ("" if not flips_own else f" (own gap {rel_own:.3e}; {flips} flips with "
+           f"the full prefill's choices, margin {margin:.3e})")
+        + f"; {time.perf_counter() - t0:.2f} s")
+    del eng, toks
+    torch.cuda.empty_cache()
+    return rel
+
+
+def serve_full_width(dev) -> dict:
+    """(h) and (i): ServeEngine on each :data:`PAPER_SERVE` and
+    :data:`MOE_SSM_SERVE` model at full width: init time, weights and init
+    peak memory; one ``generate`` with its launches by kernel and variant
+    (attention models: every flash and decode launch on the expected
+    variant; mamba2: none) and its output tokens/s; prefill->decode
+    consistency with the attention weights at contraction fan-in (the JAX
+    init's gap printed, not gated; :func:`serve_consistency`) by
+    :func:`routed_gap` (where the split path's own expert choices differ
+    from the full prefill's, the gap gated is the split path's with the
+    full prefill's choices, each choice it would have made otherwise must
+    be a near tie, and the float32 run of :func:`float32_consistency` is
+    gated too); prefill s, the median of three prefills, and decode ms a
+    step, generate's decode loop timed alone from the last prefill's cache;
+    one MoE block's or SSD block's time split; and every served config's
+    smoke config (jamba's too) card vs CPU in float32. Returns the
+    launches of each arch's ``generate`` by kernel and variant."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.config import MAMBA
 
-    rng = np.random.default_rng(0)
+    # each phase draws its prompts and block inputs from a generator of its
+    # own (seed 0), in its models' order
+    rngs = {"(h)": np.random.default_rng(0), "(i)": np.random.default_rng(0)}
     served = {}
-    for arch, layers, B, S, n_out, variants in PAPER_SERVE:
+    for entry in PAPER_SERVE + MOE_SSM_SERVE:
+        arch, layers, B, S, n_out, variants = entry
+        phase = "(h)" if entry in PAPER_SERVE else "(i)"
+        rng = rngs[phase]
         cfg = get_config(arch)
         if layers is not None:
             cfg = cfg.replace(num_layers=layers)
@@ -670,13 +924,14 @@ def serve_paper_decoders(dev) -> dict:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         weights_gb = torch.cuda.memory_allocated() / 1e9
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)
         t0 = time.perf_counter()
         full, cache = eng.prefill(eng.params, {"tokens": toks})  # first call
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        del cache
+        del cache, full
         reset_counts()
         t0 = time.perf_counter()
         out = eng.generate(tokens, n_out)
@@ -685,43 +940,103 @@ def serve_paper_decoders(dev) -> dict:
         launches = counts()
         by_variant = {"flash": dict(fa.flash_attention.launches_by_variant),
                       "decode": dict(dec.decode_attention.launches_by_variant)}
-        if not (launches == {"polca_tick": 0, "flash_attention": cfg.num_layers,
-                             "decode_attention": cfg.num_layers * n_out}
-                and all(by_variant[kind][want] == launches[f"{kind}_attention"]
-                        for kind, want in variants.items())):
+        n_attn = 0 if variants is None else cfg.num_layers
+        if not (launches == {"polca_tick": 0, "flash_attention": n_attn,
+                             "decode_attention": n_attn * n_out}
+                and (variants is None or all(
+                    by_variant[kind][want] == launches[f"{kind}_attention"]
+                    for kind, want in variants.items()))):
             raise AssertionError(f"{arch}: generate launched {launches}, by variant "
-                                 f"{by_variant}; want every launch on {variants}")
+                                 f"{by_variant}; want {n_attn} flash and "
+                                 f"{n_attn * n_out} decode launches on {variants}")
         if out.shape != (B, n_out) or not ((out >= 0) & (out < cfg.vocab_size)).all():
             raise AssertionError(f"{arch}: bad generated tokens {out.shape}")
-        rel_init = prefill_decode_gap(eng, toks, full)
+        rel_init, _, flips_init, _, _ = routed_gap(eng, toks)
         condition_attention(cfg, eng.params)
-        torch.cuda.synchronize()
+        prefill_runs = []
+        for _ in range(3):
+            full = cache = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full, cache = eng.prefill(eng.params, {"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_runs.append(time.perf_counter() - t0)
+        prefill_s = sorted(prefill_runs)[1]
+        # generate's decode loop, timed alone
+        tok = full[:, -1].argmax(dim=-1, keepdim=True)
         t0 = time.perf_counter()
-        full, cache = eng.prefill(eng.params, {"tokens": toks})
+        for i in range(n_out):
+            logits, cache = eng.decode(eng.params, tok, S + i, cache)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        del cache
-        rel = prefill_decode_gap(eng, toks, full)
+        decode_ms = (time.perf_counter() - t0) / n_out * 1e3
+        del cache, full, logits
+        rel, rel_own, flips_own, flips, margin = routed_gap(eng, toks)
         if not rel < SERVE_REL_TOL:
             raise AssertionError(f"{arch}: prefill->decode mismatch rel={rel:.3e}")
-        decode_ms = (gen_s - prefill_s) / n_out * 1e3
+        if not margin < NEAR_TIE:
+            raise AssertionError(f"{arch}: a routing choice of the split path differs "
+                                 f"from the full prefill's by a margin {margin:.3e} "
+                                 f">= {NEAR_TIE}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         served[arch] = {"layers": cfg.num_layers, **launches, "by_variant": by_variant}
-        say(f"(h) serving {arch} (full width, {cfg.num_layers}"
+        routing = ("" if not cfg.moe_num_experts else
+                   f"; the split path's own routing differed from the full "
+                   f"prefill's in {flips_own} expert choices ({flips_init} with the "
+                   f"JAX init)" + (
+                       "" if not flips_own else
+                       f", its own gap {rel_own:.3e} (not gated); the gap gated is "
+                       f"the split path's with the full prefill's choices, where "
+                       f"{flips} of its own differ (largest probability margin "
+                       f"{margin:.3e} < {NEAR_TIE})"))
+        say(f"{phase} serving {arch} (full width, {cfg.num_layers}"
             f"{'' if layers is None else ' of ' + str(get_config(arch).num_layers)} "
-            f"layers, hd {cfg.head_dim}, random weights seed 0, bf16): init "
-            f"{init_s:.2f} s, weights {weights_gb:.2f} GB; {B} x {S}-token prompts, "
-            f"{n_out} new tokens: prefill {prefill_s:.4f} s (first call "
-            f"{first_s:.4f} s), generate {gen_s:.3f} s, decode {decode_ms:.3f} "
-            f"ms/token step (derived: (generate - prefill) / {n_out}), "
-            f"{B * n_out / gen_s:.1f} output tokens/s; peak memory {peak_gb:.2f} "
-            f"GB; launches {launches} (by variant {by_variant}); "
-            f"prefill->decode rel gap {rel:.3e} < {SERVE_REL_TOL} with attention "
-            f"weights at contraction fan-in, {rel_init:.3e} with the JAX init "
-            f"(not gated); sample {out[0, :8].tolist()}")
-        del eng, full, toks
+            f"layers, {'no attention' if variants is None else f'hd {cfg.head_dim}'}, "
+            f"random weights seed 0, bf16): init {init_s:.2f} s (peak "
+            f"{init_peak_gb:.2f} GB), weights {weights_gb:.2f} GB; {B} x {S}-token "
+            f"prompts, {n_out} new tokens: prefill {prefill_s:.4f} s (median of "
+            f"{' / '.join(f'{t:.4f}' for t in prefill_runs)}; first call "
+            f"{first_s:.4f} s), decode {decode_ms:.3f} ms/token step ({n_out} steps "
+            f"timed alone), generate {gen_s:.3f} s, {B * n_out / gen_s:.1f} output "
+            f"tokens/s; peak memory {peak_gb:.2f} GB; "
+            f"launches {launches} (by variant {by_variant}); prefill->decode rel "
+            f"gap {rel:.3e} < {SERVE_REL_TOL} with attention weights at "
+            f"contraction fan-in, {rel_init:.3e} with the JAX init (not "
+            f"gated){routing}; sample {out[0, :8].tolist()}")
+        if cfg.moe_num_experts:
+            for step, T in (("prefill", B * S), ("decode", B)):
+                m = moe_block_split(eng, cfg, T, rng, dev)
+                share = m["whole_ms"] * cfg.num_layers / (
+                    prefill_s * 1e3 if step == "prefill" else decode_ms)
+                say(f"{phase} {arch} MoE block at its {step} shape (T {T}, {m['rows']} "
+                    f"routed rows on {m['experts_used']} of {cfg.moe_num_experts} "
+                    f"experts; host clock, synchronized): routing "
+                    f"{m['route_ms']:.4f} ms, sort/dispatch with the group-size read "
+                    f"{m['dispatch_ms']:.4f} ms, row gather {m['gather_ms']:.4f} ms, "
+                    f"expert GEMMs {m['gemm_ms']:.4f} ms (bound {m['gemm_bound_ms']:.4f} "
+                    f"ms by {m['gemm_bound_by']}), combine {m['combine_ms']:.4f} ms; "
+                    f"moe_apply {m['whole_ms']:.4f} ms, x {cfg.num_layers} layers = "
+                    f"{share:.1%} of the {step}")
+                served[arch][f"moe_{step}"] = m
+        if MAMBA in cfg.pattern:
+            m = ssd_block_split(eng, cfg, B, S, rng, dev)
+            say(f"{phase} {arch} SSD block (layer 0, host clock, synchronized): prefill "
+                f"[{B}, {S}]: projections {m['proj_ms']:.4f} ms, convolutions "
+                f"{m['conv_ms']:.4f} ms, chunked SSD {m['ssd_ms']:.4f} ms, gate/norm/out "
+                f"{m['gate_ms']:.4f} ms; ssm_forward {m['whole_ms']:.4f} ms, x "
+                f"{cfg.num_layers} layers = {m['whole_ms'] * cfg.num_layers / (prefill_s * 1e3):.1%} "
+                f"of the prefill (the SSD alone "
+                f"{m['ssd_ms'] * cfg.num_layers / (prefill_s * 1e3):.1%}); decode step "
+                f"of {B} tokens: projections {m['decode_proj_ms']:.4f} ms, convolutions "
+                f"{m['decode_conv_ms']:.4f} ms, ssm_decode {m['decode_ms']:.4f} ms, x "
+                f"{cfg.num_layers} layers = "
+                f"{m['decode_ms'] * cfg.num_layers / decode_ms:.1%} of a decode step")
+            served[arch]["ssd"] = m
+        del eng, toks
         torch.cuda.empty_cache()
-    for arch, *_ in PAPER_SERVE:
+        if flips_own:
+            served[arch]["float32"] = float32_consistency(arch, dev)
+    for arch in [a for a, *_ in PAPER_SERVE] + list(MOE_SSM_SMOKE):
         serve_card_vs_cpu(dev, arch)
     return served
 
@@ -740,19 +1055,22 @@ _FLEX = {}  # the compiled flex_attention, made on first use
 def flex_library(softcap: float, *, window: int = 0, valid_len=None, Sq: int, Skv: int,
                  dev):
     """PyTorch's one call for attention with a logit softcap, which
-    scaled_dot_product_attention lacks: ``flex_attention`` compiled (its
-    documented use), with score_mod ``cap * tanh(s / cap)`` and a block mask
-    of the causal window (prefill, ``valid_len`` None) or of the first
-    ``valid_len`` keys (decode, ``Sq`` = 1). Returns ``fn(q, k, v)`` on
-    ``[B, heads, seq, hd]`` tensors (GQA by ``enable_gqa``); the default
+    scaled_dot_product_attention lacks, or with a sliding window that skips
+    the blocks outside it: ``flex_attention`` compiled (its documented
+    use), with score_mod ``cap * tanh(s / cap)`` when ``softcap`` and a
+    block mask of the causal window (prefill, ``valid_len`` None) or of the
+    first ``valid_len`` keys (decode, ``Sq`` = 1). Returns ``fn(q, k, v)``
+    on ``[B, heads, seq, hd]`` tensors (GQA by ``enable_gqa``); the default
     scale is the kernels' ``hd ** -0.5``. A yardstick the port never calls."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
     if "fn" not in _FLEX:
         _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
 
-    def score_mod(s, b, h, qi, kv):
+    def capped(s, b, h, qi, kv):
         return softcap * torch.tanh(s / softcap)
+
+    score_mod = capped if softcap else None
 
     if valid_len is None:
         def mask_mod(b, h, qi, kv):
@@ -770,11 +1088,20 @@ def library_rows(row: dict, softcap: float, sdpa_ms: float, flex_ms, flex_err) -
     """Fill ``row``'s library keys: with a softcap, ``library_ms`` is
     flex_attention's time (the same function) and ``library_no_softcap_ms``
     scaled_dot_product_attention's on the same inputs without the softcap;
-    else ``library_ms`` is scaled_dot_product_attention's. Returns the text
-    for the printed line."""
-    if not softcap:
+    with a sliding window and no softcap (``flex_ms`` given),
+    ``library_ms`` is flex_attention's with the window's block mask and
+    ``library_sdpa_mask_ms`` scaled_dot_product_attention's with the window
+    as a boolean mask; else ``library_ms`` is scaled_dot_product_attention's.
+    Returns the text for the printed line."""
+    if flex_ms is None:
         row["library_ms"] = sdpa_ms
         return f"scaled_dot_product_attention {sdpa_ms:.5f} ms"
+    if not softcap:
+        row.update(library_ms=flex_ms, library_sdpa_mask_ms=sdpa_ms,
+                   library_max_abs_err=flex_err)
+        return (f"flex_attention with the window's block mask {flex_ms:.5f} ms (max abs "
+                f"gap to the plain version {flex_err:.3e}), scaled_dot_product_attention "
+                f"with it as a boolean mask {sdpa_ms:.5f} ms")
     row.update(library_ms=flex_ms, library_no_softcap_ms=sdpa_ms,
                library_max_abs_err=flex_err)
     return (f"flex_attention with the softcap {flex_ms:.5f} ms (max abs gap to the "
@@ -786,9 +1113,10 @@ def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
                window: int = 0, softcap: float = 0.0, calls: int = 20) -> dict:
     """The flash kernel at one bf16 causal prefill shape, held against its
     plain version: device time, call time, the plain version's and the
-    library's device times (:func:`library_rows`; a window goes to
-    scaled_dot_product_attention as a boolean mask), the bound and the
-    error."""
+    library's device times (:func:`library_rows`: flex_attention with a
+    softcap or a window, whose block mask skips the blocks outside it;
+    scaled_dot_product_attention takes a window as a boolean mask), the
+    bound and the error."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -805,7 +1133,7 @@ def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
     del got
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     flex_ms = flex_err = None
-    if softcap:
+    if softcap or window:
         flex = flex_library(softcap, window=window, Sq=S, Skv=S, dev=dev)
         flex_err = compare_close(flex(qt, kt, vt).transpose(1, 2), want,
                                  ATTN_TOL["bfloat16"], f"flex_attention at {label}")
@@ -890,22 +1218,25 @@ def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int, *,
     return row
 
 
-# the phase (h) model each kernel is timed and checked at, by key of the
-# kernels JSON line: every layer of gpt-neox-20b and opt-30b; gemma2-9b's
-# LOCAL layers (windowed prefill, ring decode) and GLOBAL layers
+# the phase (h) and (i) model each kernel is timed and checked at, by key of
+# the kernels JSON line: every layer of gpt-neox-20b and opt-30b; gemma2-9b's
+# LOCAL layers (windowed prefill, ring decode) and GLOBAL layers; every layer
+# of mixtral-8x7b (windowed prefill, ring decode) and of kimi-k2-1t-a32b
 SERVED_TIMINGS = {"hd96": "gpt-neox-20b", "opt30b": "opt-30b",
-                  "local": "gemma2-9b", "global": "gemma2-9b"}
+                  "local": "gemma2-9b", "global": "gemma2-9b",
+                  "mixtral": "mixtral-8x7b", "kimi": "kimi-k2-1t-a32b"}
 
 
 def time_attention(dev, rng_seed: int = 7) -> list:
     """Both attention kernels at the serving main-path shapes (llama3.2-1b),
     the flash kernel also at the qwen3-8b / yi-34b head dim of 128, and both
-    at every attention shape of phase (h) (:data:`SERVED_TIMINGS`): a
-    prefill of the served prompt, and a decode step halfway through the new
-    tokens (gemma2's LOCAL layers: its full ring of W slots), each held
+    at every attention shape of phases (h) and (i) (:data:`SERVED_TIMINGS`):
+    a prefill of the served prompt, and a decode step halfway through the
+    new tokens (a sliding-window layer: its full ring of W slots), each held
     against its plain version."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.models.config import LOCAL
     from repro_torch.models.model import cache_len
 
     cfg = get_config(SERVE_ARCH)
@@ -916,14 +1247,15 @@ def time_attention(dev, rng_seed: int = 7) -> list:
     flash["hd128"] = time_flash(dev, rng, B, S, 32, 8, 128)
     decode = time_decode(dev, rng, B, cache_len(SERVE_PROMPT + SERVE_OUT), H, KV, hd,
                          SERVE_VALID_LEN)
-    shapes = {arch: (B, S, n_out) for arch, _, B, S, n_out, _ in PAPER_SERVE}
+    shapes = {arch: (B, S, n_out)
+              for arch, _, B, S, n_out, _ in PAPER_SERVE + MOE_SSM_SERVE}
     for key, arch in SERVED_TIMINGS.items():
         c = get_config(arch)
         B, S, n_out = shapes[arch]
         heads = (B, S, c.num_heads, c.num_kv_heads, c.head_dim)
         cap = c.attn_logit_softcap
         calls = 20 if S <= 1024 else 4
-        if key == "local":
+        if key != "global" and LOCAL in c.pattern:
             W = c.window_size
             flash[key] = time_flash(dev, rng, *heads, window=W, softcap=cap, calls=calls)
             decode[key] = time_decode(dev, rng, B, W, *heads[2:], W, softcap=cap)
@@ -2067,13 +2399,14 @@ def main() -> int:
     serve_consistency(dev)
     serve_card_vs_cpu(dev)
 
-    # 6h. the paper's dense decoders and gemma2 at full width
+    # 6h-i. the paper's dense decoders and gemma2, then the MoE, Mamba2/SSD
+    # and hybrid decoders, at full width
     t0 = time.perf_counter()
-    served = serve_paper_decoders(dev)
-    say(f"(h) paper decoders and gemma2: phase total {time.perf_counter() - t0:.2f} s")
+    served = serve_full_width(dev)
+    say(f"(h, i) full-width decoders: phase total {time.perf_counter() - t0:.2f} s")
 
     # 7. the attention kernels at the serving main-path shapes, and at the
-    # shapes of phase (h)
+    # shapes of phases (h) and (i)
     attn = time_attention(dev)
 
     kernels = [{

@@ -1,12 +1,22 @@
 """Architecture registry (PyTorch port of ``repro.configs``).
 
 This port carries the paper's evaluation workload, BLOOM-176B, whose
-roofline terms set the power plane of the Table-4 mix, and the dense
-decoders the serving path runs: llama3.2-1b, qwen3-8b (qk-norm), yi-34b
-(padded query heads), the paper's own gpt-neox-20b (head dim 96) and
-opt-30b, and gemma2-9b (alternating sliding-window and global layers with
-a ring-buffer cache, softcaps, post-norms, GeGLU). The other architectures
-come with the slices that port their blocks (ROADMAP Queue 1 item 4).
+roofline terms set the power plane of the Table-4 mix, and the decoders
+the serving path runs:
+
+* dense: llama3.2-1b, qwen3-8b (qk-norm), yi-34b (padded query heads), the
+  paper's own gpt-neox-20b (head dim 96) and opt-30b, and gemma2-9b
+  (alternating sliding-window and global layers with a ring-buffer cache,
+  softcaps, post-norms, GeGLU);
+* mixture of experts: mixtral-8x7b (8 experts top-2, a 4096 sliding
+  window on every layer) and kimi-k2-1t-a32b (384 experts top-8 and a
+  shared expert, bf16 weights);
+* state space: mamba2-370m (Mamba2/SSD blocks only, tied embeddings);
+* hybrid: jamba-1.5-large-398b (Mamba2 and attention 7:1 without RoPE, an
+  FFN after every block, MoE on every other one).
+
+The encoder, encoder-decoder and vision architectures come with the slices
+that port their blocks (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -19,7 +29,11 @@ ALL = {
     "bloom-176b": "bloom_176b",
     "gemma2-9b": "gemma2_9b",
     "gpt-neox-20b": "gpt_neox_20b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llama3.2-1b": "llama3_2_1b",
+    "mamba2-370m": "mamba2_370m",
+    "mixtral-8x7b": "mixtral_8x7b",
     "opt-30b": "opt_30b",
     "qwen3-8b": "qwen3_8b",
     "yi-34b": "yi_34b",

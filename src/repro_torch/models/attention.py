@@ -19,8 +19,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.param import ParamSpec
 
-NOT_PORTED = ("waits for ROADMAP Queue 1 item 4 (serving beyond dense "
-              "attention decoders)")
+NOT_PORTED = ("waits for ROADMAP Queue 1 item 4 (encoders, cross-attention "
+              "and modality frontends)")
 
 
 def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:

@@ -8,6 +8,8 @@ activation dtype where it is used.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -45,9 +47,9 @@ def rope(x, positions, theta: float):
     return torch.cat([y1, y2], dim=-1)
 
 
-def mlp_specs(cfg: ModelConfig) -> dict:
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     D = cfg.d_model
-    F_ = cfg.d_ff
+    F_ = d_ff or cfg.d_ff
     wd = cfg.weight_dtype
     if cfg.mlp_type in ("swiglu", "geglu"):
         return {

@@ -1,19 +1,28 @@
 """The model: parameter specs, prefill and decode (PyTorch port of
-``repro.models.model``), for dense decoders.
+``repro.models.model``), for decoders.
 
 Plain functions over a parameter dict, as in the JAX package. The tree has
 the JAX layout, with each block's parameters stacked over ``num_groups`` on
 a leading layer axis; the forward passes walk that axis in a Python loop
-where the JAX package scans it. The KV cache is stacked the same way,
-``{"b<i>": {"k": [L, B, Tc, KV, hd], "v": ...}}``, each block with its own
-``Tc``, and decode updates it in place.
+where the JAX package scans it. The cache is stacked the same way, one
+entry a block of the pattern, and decode updates it in place.
 
-This slice serves configs whose pattern is global (ATTN) and sliding-window
-(LOCAL) self attention with a dense MLP. A LOCAL block of window ``W`` keeps
-``min(T, W)`` cache slots, as the JAX model does; a cache of exactly ``W``
-slots is a ring (position ``p`` in slot ``p mod W``). Mamba, MoE, encoders
-and modality frontends raise ``NotImplementedError`` (ROADMAP Queue 1 item
-4).
+The config's ``pattern`` gives each group's block kinds:
+
+* global (ATTN) and sliding-window (LOCAL) self attention, cached as
+  ``{"k": [L, B, Tc, KV, hd], "v": ...}``. A LOCAL block of window ``W``
+  keeps ``min(T, W)`` slots, as the JAX model does; a cache of exactly
+  ``W`` slots is a ring (position ``p`` in slot ``p mod W``);
+* Mamba2 (MAMBA) blocks (:mod:`repro_torch.models.ssm`), cached as their
+  float32 SSM state ``[L, B, H, N, P]`` and the tails of their three
+  causal convolutions ``conv_x/conv_B/conv_C [L, B, W - 1, .]``.
+
+An attention block carries an FFN sublayer, and a Mamba block does too when
+``ffn_every_block`` (jamba). The FFN is a dense MLP, or on every
+``moe_layer_period``-th block a mixture of experts
+(:mod:`repro_torch.models.moe`) plus the shared expert of
+``moe_shared_expert_ff``. Encoders, cross-attention and modality frontends
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -25,20 +34,18 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.config import ATTN, LOCAL, ModelConfig
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import LOCAL, MAMBA, ModelConfig
 from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.models.param import ParamSpec, tree_map_specs
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve."""
+    """Raise ``NotImplementedError`` for what the port does not serve."""
     missing = []
-    if any(kind not in (ATTN, LOCAL) for kind in cfg.pattern):
-        missing.append(f"block kinds {sorted(set(cfg.pattern) - {ATTN, LOCAL})}")
-    if cfg.moe_num_experts:
-        missing.append("MoE")
     if cfg.is_encoder_decoder or cfg.is_encoder_only:
-        missing.append("encoders")
+        missing.append("encoders and cross-attention")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if missing:
@@ -50,15 +57,40 @@ def check_supported(cfg: ModelConfig) -> None:
 # parameter specs
 # ---------------------------------------------------------------------------
 
-def block_specs(cfg: ModelConfig) -> dict:
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return kind != MAMBA or cfg.ffn_every_block
+
+
+def _is_moe_block(cfg: ModelConfig, idx: int, kind: str) -> bool:
+    if not cfg.moe_num_experts or not _has_ffn(cfg, kind):
+        return False
+    if cfg.moe_layer_period == 1:
+        return True
+    return idx % cfg.moe_layer_period == cfg.moe_layer_period - 1
+
+
+def block_specs(cfg: ModelConfig, idx: int, kind: str) -> dict:
+    """Block ``idx`` of the pattern, of kind ``kind``."""
     D = cfg.d_model
-    p: Dict[str, Any] = {"ln_attn": rmsnorm_spec(D), "attn": attn_mod.attn_specs(cfg)}
-    if cfg.use_post_norm:
-        p["post_ln_attn"] = rmsnorm_spec(D)
-    p["ln_mlp"] = rmsnorm_spec(D)
-    p["mlp"] = mlp_specs(cfg)
-    if cfg.use_post_norm:
-        p["post_ln_mlp"] = rmsnorm_spec(D)
+    p: Dict[str, Any] = {}
+    if kind == MAMBA:
+        p["ln"] = rmsnorm_spec(D)
+        p["ssm"] = ssm_mod.ssm_specs(cfg)
+    else:
+        p["ln_attn"] = rmsnorm_spec(D)
+        p["attn"] = attn_mod.attn_specs(cfg)
+        if cfg.use_post_norm:
+            p["post_ln_attn"] = rmsnorm_spec(D)
+    if _has_ffn(cfg, kind):
+        p["ln_mlp"] = rmsnorm_spec(D)
+        if _is_moe_block(cfg, idx, kind):
+            p["moe"] = moe_mod.moe_specs(cfg, 1)
+            if cfg.moe_shared_expert_ff:
+                p["shared_mlp"] = mlp_specs(cfg, cfg.moe_shared_expert_ff)
+        else:
+            p["mlp"] = mlp_specs(cfg)
+        if cfg.use_post_norm:
+            p["post_ln_mlp"] = rmsnorm_spec(D)
     return p
 
 
@@ -79,28 +111,33 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)
-    group = {f"b{i}": block_specs(cfg) for i in range(len(cfg.pattern))}
+    group = {f"b{i}": block_specs(cfg, i, kind) for i, kind in enumerate(cfg.pattern)}
     specs["decoder"] = _stack_specs(group, cfg.num_groups)
     return specs
 
 
-# rmsnorm scales: the model reads them in float32 (every other weight is cast
-# to the activation dtype where it is used)
-NORM_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_mlp", "post_ln_mlp",
-                       "final_norm", "q_norm", "k_norm"})
+# leaves the model reads in float32 or in their spec dtype, never in the
+# activation dtype: the rmsnorm scales (the SSM's gate_norm too), the MoE
+# router (float32 logits) and the SSM's A_log, dt_bias and D_skip (read
+# .float()). Every other weight is cast to the activation dtype where it
+# is used.
+SPEC_DTYPE_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_mlp", "post_ln_mlp",
+                             "final_norm", "q_norm", "k_norm", "ln", "gate_norm",
+                             "router", "A_log", "dt_bias", "D_skip"})
 
 
 def cast_weights(cfg: ModelConfig, specs, name: str = "") -> Any:
-    """The parameter specs ``specs`` with every weight except the norm
-    scales in the activation dtype. The model casts each such weight to
-    that dtype where it uses it, as the JAX model does, so weights stored
-    cast compute the same numbers and save a cast of every weight on every
-    step; ``init_params`` of these specs casts each leaf as it draws it
-    (the same values as a cast after the draw, without a float32 copy of
-    the whole model)."""
+    """The parameter specs ``specs`` with every weight except
+    :data:`SPEC_DTYPE_KEYS` in the activation dtype. The model casts each
+    such weight to that dtype where it uses it, as the JAX model does, so
+    weights stored cast compute the same numbers and save a cast of every
+    weight on every step; ``init_params`` of these specs casts each leaf as
+    it draws it (the same values as a cast after the draw, without a
+    float32 copy of the whole model). The others keep their spec dtype, so
+    that routing and the SSM's decay are JAX's in bf16 too."""
     if isinstance(specs, dict):
         return {k: cast_weights(cfg, v, k) for k, v in specs.items()}
-    if name in NORM_KEYS:
+    if name in SPEC_DTYPE_KEYS:
         return specs
     return dataclasses.replace(specs, dtype=cfg.activation_dtype)
 
@@ -138,7 +175,12 @@ def _layer(tree, l: int):
 
 def _ffn_apply(cfg, bp, h):
     y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
-    out = mlp(cfg, bp["mlp"], y)
+    if "moe" in bp:
+        out = moe_mod.moe_apply(cfg, bp["moe"], y)
+        if "shared_mlp" in bp:
+            out = out + mlp(cfg, bp["shared_mlp"], y)
+    else:
+        out = mlp(cfg, bp["mlp"], y)
     if cfg.use_post_norm:
         out = rmsnorm(out, bp["post_ln_mlp"], cfg.norm_eps)
     return h + out
@@ -170,20 +212,41 @@ def cache_len(T: int) -> int:
     return -(-T // CACHE_PAD) * CACHE_PAD
 
 
+def _cache_entry(cfg: ModelConfig, kind: str, B: int, Tc: int) -> dict:
+    """Abstract cache entry of one block (no layer axis): ``Tc`` K/V slots
+    for attention; the float32 SSM state and the conv tails for MAMBA."""
+    act = cfg.activation_dtype
+    if kind == MAMBA:
+        d_in, H, G, N = ssm_mod.ssm_dims(cfg)
+        W = cfg.ssm_conv_width
+        return {
+            "state": ParamSpec((B, H, N, cfg.ssm_headdim),
+                               ("batch", "ssm_heads", None, None), "zeros",
+                               dtype=torch.float32),
+            "conv_x": ParamSpec((B, W - 1, d_in), ("batch", None, "ssm_inner"),
+                                "zeros", dtype=act),
+            "conv_B": ParamSpec((B, W - 1, G * N), ("batch", None, None), "zeros",
+                                dtype=act),
+            "conv_C": ParamSpec((B, W - 1, G * N), ("batch", None, None), "zeros",
+                                dtype=act),
+        }
+    return {name: ParamSpec((B, Tc, cfg.num_kv_heads, cfg.head_dim),
+                            ("batch", "kv_seq", None, None), "zeros", dtype=act)
+            for name in ("k", "v")}
+
+
 def cache_specs(cfg: ModelConfig, B: int, T: int) -> dict:
-    """Abstract KV cache for B sequences of up to T tokens: ``min(T, W)``
-    slots for a LOCAL block of window W, ``cache_len(T)`` for the others."""
+    """Abstract cache for B sequences of up to T tokens: ``min(T, W)`` K/V
+    slots for a LOCAL block of window W, ``cache_len(T)`` for a global one,
+    the SSM state and conv tails for a MAMBA block."""
     check_supported(cfg)
-    KV, hd, act = cfg.num_kv_heads, cfg.head_dim, cfg.activation_dtype
 
-    def entry(kind):
-        Tc = (min(T, cfg.window_size) if kind == LOCAL and cfg.window_size
-              else cache_len(T))
-        return {name: ParamSpec((B, Tc, KV, hd), ("batch", "kv_seq", None, None),
-                                "zeros", dtype=act) for name in ("k", "v")}
+    def slots(kind):
+        return (min(T, cfg.window_size) if kind == LOCAL and cfg.window_size
+                else cache_len(T))
 
-    return _stack_specs({f"b{i}": entry(kind) for i, kind in enumerate(cfg.pattern)},
-                        cfg.num_groups)
+    return _stack_specs({f"b{i}": _cache_entry(cfg, kind, B, slots(kind))
+                         for i, kind in enumerate(cfg.pattern)}, cfg.num_groups)
 
 
 def _ring_slots(S: int, W: int, device) -> torch.Tensor:
@@ -198,7 +261,8 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
     float32 logits [B, 1, V], cache). A global block's cache has
     ``max_len`` slots. A LOCAL block of window W attends within its window;
     when ``W <= S`` its cache is a ring of W slots holding the last W
-    positions (:func:`_ring_slots`), else it has ``min(max_len, W)`` slots."""
+    positions (:func:`_ring_slots`), else it has ``min(max_len, W)`` slots.
+    A MAMBA block caches its final SSM state and conv tails."""
     check_supported(cfg)
     h = _embed_inputs(cfg, params, batch)
     B, S = h.shape[0], h.shape[1]
@@ -207,25 +271,36 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
     for i, kind in enumerate(cfg.pattern):
         W = cfg.window_size if kind == LOCAL else 0
         Tc = min(max_len, W) if W else max_len  # W when W <= S (<= max_len)
-        shape = (cfg.num_groups, B, Tc, cfg.num_kv_heads, cfg.head_dim)
         blocks.append((W, _ring_slots(S, W, h.device) if W and W <= S else None))
-        cache[f"b{i}"] = {name: torch.zeros(shape, dtype=h.dtype, device=h.device)
-                          for name in ("k", "v")}
+        cache[f"b{i}"] = {
+            name: torch.zeros((cfg.num_groups,) + spec.shape, dtype=spec.dtype,
+                              device=h.device)
+            for name, spec in _cache_entry(cfg, kind, B, Tc).items()}
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
-        for i, (W, ring) in enumerate(blocks):
-            bp = gp[f"b{i}"]
-            a, (k, v) = attn_mod.self_attention(
-                cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                positions=positions, causal=True, window=W, return_kv=True)
-            if cfg.use_post_norm:
-                a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
-            h = h + a
-            if ring is not None:
-                k, v = k[:, ring], v[:, ring]
-            cache[f"b{i}"]["k"][l, :, :k.shape[1]] = k
-            cache[f"b{i}"]["v"][l, :, :v.shape[1]] = v
-            h = _ffn_apply(cfg, bp, h)
+        for i, (kind, (W, ring)) in enumerate(zip(cfg.pattern, blocks)):
+            bp, bc = gp[f"b{i}"], cache[f"b{i}"]
+            if kind == MAMBA:
+                y, (state, tails) = ssm_mod.ssm_forward(
+                    cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps),
+                    return_state=True)
+                h = h + y
+                bc["state"][l] = state
+                for name in ("x", "B", "C"):
+                    bc[f"conv_{name}"][l] = tails[name]
+            else:
+                a, (k, v) = attn_mod.self_attention(
+                    cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
+                    positions=positions, causal=True, window=W, return_kv=True)
+                if cfg.use_post_norm:
+                    a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
+                h = h + a
+                if ring is not None:
+                    k, v = k[:, ring], v[:, ring]
+                bc["k"][l, :, :k.shape[1]] = k
+                bc["v"][l, :, :v.shape[1]] = v
+            if _has_ffn(cfg, kind):
+                h = _ffn_apply(cfg, bp, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h[:, -1:, :]), cache
 
@@ -235,7 +310,9 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
     token's position); the cache is updated in place and returned. A LOCAL
     block whose cache has exactly ``window_size`` slots decodes against it
     as a ring (:func:`~repro_torch.models.attention.decode_ring_attention`);
-    every other block against slots ``0 .. pos``.
+    every other attention block against slots ``0 .. pos``; a MAMBA block
+    takes one step of its recurrence (:func:`~repro_torch.models.ssm.
+    ssm_decode`) and writes its new state and conv tails into the cache.
     Returns (float32 logits [B, 1, V], cache)."""
     check_supported(cfg)
     h = params["embed"][token.long()].to(cfg.activation_dtype)
@@ -243,17 +320,27 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
         gp = _layer(params["decoder"], l)
         for i, kind in enumerate(cfg.pattern):
             bp, bc = gp[f"b{i}"], cache[f"b{i}"]
-            x_norm = rmsnorm(h, bp["ln_attn"], cfg.norm_eps)
-            W = cfg.window_size if kind == LOCAL else 0
-            if W and bc["k"].shape[2] == W:
-                y, _, _ = attn_mod.decode_ring_attention(
-                    cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W)
+            if kind == MAMBA:
+                y, (state, tails) = ssm_mod.ssm_decode(
+                    cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps), bc["state"][l],
+                    {name: bc[f"conv_{name}"][l] for name in ("x", "B", "C")})
+                h = h + y
+                bc["state"][l] = state
+                for name in ("x", "B", "C"):
+                    bc[f"conv_{name}"][l] = tails[name]
             else:
-                y, _, _ = attn_mod.decode_self_attention(
-                    cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W)
-            if cfg.use_post_norm:
-                y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
-            h = h + y
-            h = _ffn_apply(cfg, bp, h)
+                x_norm = rmsnorm(h, bp["ln_attn"], cfg.norm_eps)
+                W = cfg.window_size if kind == LOCAL else 0
+                if W and bc["k"].shape[2] == W:
+                    y, _, _ = attn_mod.decode_ring_attention(
+                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W)
+                else:
+                    y, _, _ = attn_mod.decode_self_attention(
+                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W)
+                if cfg.use_post_norm:
+                    y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
+                h = h + y
+            if _has_ffn(cfg, kind):
+                h = _ffn_apply(cfg, bp, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h), cache

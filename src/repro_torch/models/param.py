@@ -21,7 +21,7 @@ import torch
 class ParamSpec:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]  # one logical axis name (or None) per dim
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a | ssm_dt
     scale: float = 1.0  # stddev multiplier for normal init
     dtype: torch.dtype = torch.float32
 
@@ -41,19 +41,25 @@ def tree_map_specs(fn, tree):
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
-    """One parameter on ``generator``'s device: zeros, ones, or a normal
-    truncated at two standard deviations with fan-in scaling (stddev
-    ``scale / sqrt(fan_in)``, fan-in the second-to-last dim), drawn in
-    float32 and cast to the spec's dtype."""
+    """One parameter on ``generator``'s device: zeros, ones, the Mamba2
+    inits of ``A_log`` (``ssm_a``: log of U(1, 16)) and of the dt bias
+    (``ssm_dt``: softplus^-1 of U(1e-3, 1e-1)), or a normal truncated at two
+    standard deviations with fan-in scaling (stddev ``scale / sqrt(fan_in)``,
+    fan-in the second-to-last dim), drawn in float32 and cast to the spec's
+    dtype."""
     dev = generator.device
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init in ("ssm_a", "ssm_dt"):
+        lo, hi = (1.0, 16.0) if spec.init == "ssm_a" else (1e-3, 1e-1)
+        u = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+        u.uniform_(lo, hi, generator=generator)
+        return (torch.log(u) if spec.init == "ssm_a"
+                else torch.log(torch.expm1(u))).to(spec.dtype)
     if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to the SSM blocks (ROADMAP Queue 1 "
-            f"item 4)")
+        raise ValueError(f"unknown init {spec.init!r}")
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale / math.sqrt(max(1, fan_in))
     x = torch.empty(spec.shape, dtype=torch.float32, device=dev)

@@ -2,27 +2,37 @@
 
 For the smoke configs of llama3.2-1b, qwen3-8b (qk-norm), yi-34b (padded
 query heads), gemma2-9b (alternating sliding-window and global layers,
-softcaps, post-norms, GeGLU, tied embeddings), and the paper's gpt-neox-20b
-and opt-30b (gelu MLPs), one parameter tree from JAX's ``init_params`` goes to
-both sides as numpy arrays (``load_jax_params`` on the port's side); leaves
-that JAX initialises to zero (yi's padded ``wo``) get small numpy normals
-so that every path computes something. The JAX model runs on the Auto-axis
+softcaps, post-norms, GeGLU, tied embeddings), the paper's gpt-neox-20b
+and opt-30b (gelu MLPs), mixtral-8x7b (MoE on sliding-window layers),
+kimi-k2-1t-a32b (top-8 MoE with a shared expert, bf16 weights),
+mamba2-370m (Mamba2/SSD blocks only) and jamba-1.5-large-398b (Mamba2 and
+attention without RoPE, an FFN after every block, MoE on every other one),
+one parameter tree from JAX's ``init_params`` goes to both sides as numpy
+arrays (``load_jax_params`` on the port's side); leaves that JAX
+initialises to zero (yi's padded ``wo``) get small numpy normals so that
+every path computes something. The JAX model runs on the Auto-axis
 reference mesh (ROADMAP "Open items"); the port on the CPU runs its
 kernels' plain versions.
 
-* float32: prefill logits and every cache leaf within 1e-4 relative, one
-  decode step's logits and updated cache too, and ``ServeEngine.generate``
-  gives JAX's ``ServeEngine``'s greedy tokens over 8 steps;
-* bfloat16 (the configs' default): prefill logits within the 0.06 relative
-  bound of ``tests/test_system.py``, and prefill->decode consistency below
-  0.06;
-* ``load_jax_params`` copies every leaf exactly;
+* float32: prefill logits and every cache leaf (K/V, SSM states, conv
+  tails) within 1e-4 relative, one decode step's logits and updated cache
+  too, and ``ServeEngine.generate`` gives JAX's ``ServeEngine``'s greedy
+  tokens over 8 steps;
+* bfloat16 (the configs' default), with MoE routing followed across (see
+  that test) and, for jamba alone, the attention weights conditioned:
+  prefill and decode logits within the 0.06 relative bound of
+  ``tests/test_system.py``, and prefill->decode consistency below 0.06;
+* ``load_jax_params`` copies every leaf exactly, in its spec dtype;
 * gemma2's LOCAL blocks: the prompt of S = 24 tokens is longer than the
   smoke window of 16, so prefill places the ring (S - W = 8) and decode
   wraps it; :func:`test_local_decode_matches_jax_every_step` decodes more
   than twice around the ring (and once with a window longer than the cache,
   where the block is not a ring) and compares every step's logits.
 """
+
+import contextlib
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,18 +48,24 @@ from repro.launch.serve import ServeEngine as JaxServeEngine
 from repro.launch.steps import build_decode_step as jax_decode_step
 from repro.launch.steps import build_prefill_step as jax_prefill_step
 from repro.models import model as jax_model
+from repro.models import moe as jax_moe
 from repro.models.config import ShapeConfig as JaxShapeConfig
 from repro.models.param import init_params as jax_init_params
 from repro_torch.configs import smoke_config
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
-from repro_torch.models import model
+from repro_torch.models import model, moe
 from repro_torch.models.config import ShapeConfig
 
-ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b", "gemma2-9b", "gpt-neox-20b", "opt-30b"]
+REPO = Path(__file__).resolve().parents[1]
+ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b", "gemma2-9b", "gpt-neox-20b", "opt-30b",
+         "mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b"]
 B, S = 2, 24
 F32_RTOL = 1e-4
 BF16_RTOL = 0.06  # tests/test_system.py's bound
+# the archs whose bf16 check runs on conditioned attention weights
+# (:func:`_shared_params`); every other arch runs on the JAX init
+CONDITIONED = ("jamba-1.5-large-398b",)
 
 
 @pytest.fixture(scope="module")
@@ -63,8 +79,16 @@ def _configs(arch, dtype):
     return jcfg, smoke_config(arch).replace(dtype=getattr(torch, dtype))
 
 
-def _shared_params(jcfg, seed=0):
-    """JAX-initialised parameters as a numpy tree, zero leaves filled."""
+def _shared_params(jcfg, seed=0, condition=False):
+    """JAX-initialised parameters as a numpy tree, zero leaves filled. With
+    ``condition``, the attention weights are rescaled from the JAX init's
+    fan-in (the second-to-last dim: the head count for ``wq [D, H, hd]``)
+    to a fan-in over each product's contraction dims (D for wq/wk/wv, H * hd
+    for wo), as ``chip_smoke.py::condition_attention`` does: the JAX init
+    gives attention scores of standard deviation ~85, a nearly one-hot
+    softmax that turns any two bf16 rounding orders into O(1) differences
+    after a few layers (jamba's smoke model: JAX jitted against JAX eager,
+    0.073 apart in bf16)."""
     rng = np.random.default_rng(seed)
     tree = jax.tree.map(np.asarray, jax_init_params(jax_model.model_specs(jcfg, 1),
                                                     jax.random.key(seed)))
@@ -74,7 +98,16 @@ def _shared_params(jcfg, seed=0):
             return (0.05 * rng.standard_normal(x.shape)).astype(x.dtype)
         return x
 
-    return jax.tree.map(fill, tree)
+    tree = jax.tree.map(fill, tree)
+    if condition:
+        H, KV, D = jcfg.padded_heads, jcfg.num_kv_heads, jcfg.d_model
+        for blk in tree["decoder"].values():
+            if "attn" in blk:
+                a = blk["attn"]
+                for name, f in (("wq", (H / D) ** 0.5), ("wk", (KV / D) ** 0.5),
+                                ("wv", (KV / D) ** 0.5), ("wo", H ** -0.5)):
+                    a[name] = (a[name].astype(np.float32) * np.float32(f)).astype(a[name].dtype)
+    return tree
 
 
 def _rel(a, b):
@@ -86,30 +119,80 @@ def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
-def _run_both(arch, dtype, mesh, tokens):
+@contextlib.contextmanager
+def _jax_routing():
+    """Record the top-k experts JAX's model picks in every MoE block, in
+    call order ([T, k] each, numpy): the routing of ``moe_apply``'s own
+    float32 logits of its input, sent out of the jitted step by an ordered
+    debug callback."""
+    real, taken = jax_moe.moe_apply, []
+
+    def moe_apply(cfg, p, x, **kw):
+        xf = x.reshape(-1, x.shape[-1]).astype(jnp.float32)
+        _, topi = jax.lax.top_k(jax.nn.softmax(xf @ p["router"], axis=-1), cfg.moe_top_k)
+        jax.debug.callback(lambda t: taken.append(np.asarray(t)), topi, ordered=True)
+        return real(cfg, p, x, **kw)
+
+    jax_moe.moe_apply = moe_apply
+    try:
+        yield taken
+    finally:
+        jax_moe.moe_apply = real
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its MoE routing recorder and near-tie
+    check are the ones its consistency gate runs on the card."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP_SMOKE = _chip_smoke()
+
+
+def _assert_near_ties(own, forced):
+    """Every expert the port would pick and ``forced`` does not (or the
+    reverse) is a near tie: the port's probability of its own choice
+    exceeds that of the choice it was given by less than ``NEAR_TIE``
+    (``chip_smoke.py``'s, its reason there)."""
+    _, margin = CHIP_SMOKE.routing_flips(own, forced)
+    assert margin < CHIP_SMOKE.NEAR_TIE
+
+
+def _run_both(arch, dtype, mesh, tokens, follow_jax_routing=False, condition=False):
     """Prefill of ``tokens`` and one decode step of the next token on both
-    sides. Returns ((jax logits, cache, dec logits, dec cache), (port ...))."""
+    sides, with :func:`_shared_params` (``condition`` passed on). Returns
+    ((jax logits, cache, dec logits, dec cache), (port ...)); with
+    ``follow_jax_routing`` every MoE block of the port takes the experts
+    JAX's picked (``chip_smoke.moe_routing``), and a third item, (the
+    port's own routing, JAX's), is returned."""
     jcfg, cfg = _configs(arch, dtype)
-    np_params = _shared_params(jcfg)
+    np_params = _shared_params(jcfg, condition=condition)
     jparams = jax.tree.map(jnp.asarray, np_params)
     params = model.load_jax_params(cfg, np_params, "cpu")
     shape = JaxShapeConfig("t", S, B, "prefill")
     rules = make_rules(jcfg, shape, mesh)
-    jpf = jax.jit(jax_prefill_step(jcfg, shape, mesh, rules))
-    jdc = jax.jit(jax_decode_step(jcfg, mesh, rules))
     nxt = tokens[:, -1:]
-    with set_mesh(mesh):
+    with set_mesh(mesh), _jax_routing() as taken:
+        jpf = jax.jit(jax_prefill_step(jcfg, shape, mesh, rules))
+        jdc = jax.jit(jax_decode_step(jcfg, mesh, rules))
         jl, jc = jpf(jparams, {"tokens": jnp.asarray(tokens[:, :-1])})
         jl, jc = jax.tree.map(np.asarray, (jl, jc))
         jdl, jdc_ = jdc(jparams, jnp.asarray(nxt), jnp.asarray(S - 1, jnp.int32),
                         jax.tree.map(jnp.asarray, jc))
         jdl, jdc_ = jax.tree.map(np.asarray, (jdl, jdc_))
+        jax.effects_barrier()
     pf = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))
     dc = build_decode_step(cfg)
-    pl, pc = pf(params, {"tokens": torch.as_tensor(tokens[:, :-1])})
-    pc_prefill = jax.tree.map(lambda t: t.clone(), pc)
-    pdl, pdc = dc(params, torch.as_tensor(nxt), S - 1, pc)
-    return (jl, jc, jdl, jdc_), (pl, pc_prefill, pdl, pdc)
+    forced = [torch.from_numpy(np.array(t)).long() for t in taken]
+    with CHIP_SMOKE.moe_routing(forced if follow_jax_routing else None) as own:
+        pl, pc = pf(params, {"tokens": torch.as_tensor(tokens[:, :-1])})
+        pc_prefill = jax.tree.map(lambda t: t.clone(), pc)
+        pdl, pdc = dc(params, torch.as_tensor(nxt), S - 1, pc)
+    out = (jl, jc, jdl, jdc_), (pl, pc_prefill, pdl, pdc)
+    return out + ((own, forced),) if follow_jax_routing else out
 
 
 def _tokens(cfg, seed=3):
@@ -141,18 +224,42 @@ def test_float32_prefill_and_decode_match_jax(arch, mesh):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bfloat16_logits_and_prefill_decode_consistency(arch, mesh):
+    """bf16 logits within 0.06 of JAX's, and the port's full prefill
+    within 0.06 of a prefill of all but the last token plus one decode
+    step, on the JAX init, or for :data:`CONDITIONED` archs with the
+    attention weights conditioned (:func:`_shared_params`). An MoE block
+    routes each token by a discrete top-k, and bf16 rounding flips a
+    choice where two experts' probabilities nearly tie (a flip moves a
+    token's block output by a whole expert's share). So the port
+    follows the other side's choices (JAX's; the full prefill's) and each
+    of its own choices that differ must be a near tie
+    (:func:`_assert_near_ties`); the float32 tests hold the choices
+    themselves exactly."""
     jcfg, cfg = _configs(arch, "bfloat16")
     tokens = _tokens(jcfg, seed=4)
-    (jl, _, jdl, _), (pl, _, pdl, _) = _run_both(arch, "bfloat16", mesh, tokens)
+    (jl, _, jdl, _), (pl, _, pdl, _), (own, taken) = _run_both(
+        arch, "bfloat16", mesh, tokens, follow_jax_routing=True,
+        condition=arch in CONDITIONED)
     assert _rel(jl, _np(pl)) < BF16_RTOL
     assert _rel(jdl, _np(pdl)) < BF16_RTOL
+    _assert_near_ties(own, taken)
     # the port alone: full prefill against prefill of all but the last token
     # plus one decode step of it
-    params = model.load_jax_params(cfg, _shared_params(jcfg), "cpu")
-    full, _ = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
-        params, {"tokens": torch.as_tensor(tokens)})
-    assert np.isfinite(_np(full)).all() and np.isfinite(_np(pdl)).all()
-    assert _rel(_np(full[:, -1]), _np(pdl[:, -1])) < BF16_RTOL
+    params = model.load_jax_params(
+        cfg, _shared_params(jcfg, condition=arch in CONDITIONED), "cpu")
+    with CHIP_SMOKE.moe_routing() as full_routing:
+        full, _ = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
+            params, {"tokens": torch.as_tensor(tokens)})
+    full_choices = [topi.reshape(B, S, -1) for topi, _ in full_routing]
+    forced = ([c[:, :-1].reshape(B * (S - 1), -1) for c in full_choices]
+              + [c[:, -1] for c in full_choices])
+    with CHIP_SMOKE.moe_routing(forced) as split_routing:
+        _, cache = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
+            params, {"tokens": torch.as_tensor(tokens[:, :-1])})
+        dec, _ = build_decode_step(cfg)(params, torch.as_tensor(tokens[:, -1:]), S - 1, cache)
+    _assert_near_ties(split_routing, forced)
+    assert np.isfinite(_np(full)).all() and np.isfinite(_np(dec)).all()
+    assert _rel(_np(full[:, -1]), _np(dec[:, -1])) < BF16_RTOL
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -177,10 +284,13 @@ def test_load_jax_params_copies_every_leaf(arch):
     np_params = _shared_params(jcfg)
     params = model.load_jax_params(cfg, np_params, "cpu")
     got, want = list(_leaves(params)), list(_leaves(np_params))
-    assert [p for p, _ in got] == [p for p, _ in want]
-    for (path, p), (_, x) in zip(got, want):
-        assert p.dtype == torch.float32 and tuple(p.shape) == x.shape, path
-        assert np.array_equal(p.numpy(), x), path
+    specs = list(_leaves(model.model_specs(cfg)))
+    assert [p for p, _ in got] == [p for p, _ in want] == [p for p, _ in specs]
+    for (path, p), (_, x), (_, spec) in zip(got, want, specs):
+        # float32 leaves, or bf16 ones (kimi-k2's and jamba's weights)
+        assert str(p.dtype)[6:] == np.dtype(x.dtype).name, path
+        assert p.dtype == spec.dtype and tuple(p.shape) == x.shape, path
+        assert np.array_equal(p.float().numpy(), x.astype(np.float32)), path
     bad = dict(np_params, embed=np_params["embed"][:, :-1])
     with pytest.raises(ValueError, match="embed"):
         model.load_jax_params(cfg, bad)
@@ -204,8 +314,8 @@ def test_param_and_cache_specs_match_jax(arch):
         assert (js.shape, js.logical, js.init) == (ps.shape, ps.logical, ps.init), ppath
     jcache = jax_model.cache_specs(jcfg, B, S)
     pcache = model.cache_specs(cfg, B, S)
-    assert [s.shape for s in jax.tree.leaves(jcache, is_leaf=is_spec)] == \
-        [s.shape for _, s in _leaves(pcache)]
+    assert [(s.shape, np.dtype(s.dtype).name) for s in jax.tree.leaves(jcache, is_leaf=is_spec)] \
+        == [(s.shape, str(s.dtype)[6:]) for _, s in _leaves(pcache)]
     _, cache = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
         model.load_jax_params(cfg, _shared_params(jcfg)),
         {"tokens": torch.as_tensor(_tokens(jcfg))})
@@ -215,19 +325,25 @@ def test_param_and_cache_specs_match_jax(arch):
     b = ServeEngine(cfg, S, B, device="cpu", seed=7).params
     for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
         assert torch.equal(x, y), path
-    wo = a["decoder"]["b0"]["attn"]["wo"]
-    assert bool((wo == 0).all()) == (cfg.padded_heads != cfg.num_heads)
+    for blk in a["decoder"].values():
+        if "attn" in blk:  # mamba2 has none
+            assert bool((blk["attn"]["wo"] == 0).all()) == (cfg.padded_heads != cfg.num_heads)
+    # the leaves read in float32 keep their spec dtype (the norm scales, the
+    # MoE router, the SSM's A_log, dt_bias, D_skip and gate_norm); every
+    # other weight is stored in the activation dtype
+    for (path, x), (_, spec) in zip(_leaves(a), _leaves(specs)):
+        kept = path.rsplit("/", 1)[1] in model.SPEC_DTYPE_KEYS
+        assert x.dtype == (spec.dtype if kept else cfg.activation_dtype), path
     assert a["final_norm"].dtype == torch.float32  # norm scales stay float32
     assert a["embed"].dtype == cfg.activation_dtype
 
 
 def test_unsupported_configs_raise():
-    from repro_torch.models.config import MAMBA
-
+    """Encoders (and with them cross-attention) and the vision frontend
+    still raise; MAMBA blocks and MoE serve since they were ported."""
     base = smoke_config("llama3.2-1b")
-    for cfg in (base.replace(pattern=(MAMBA,)),
-                base.replace(moe_num_experts=4, moe_top_k=2),
-                base.replace(num_encoder_layers=2),
+    for cfg in (base.replace(num_encoder_layers=2),
+                base.replace(family="encoder"),
                 base.replace(frontend="vision_stub")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
             model.model_specs(cfg)
