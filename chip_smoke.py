@@ -51,7 +51,16 @@ kernels:
   launches by kernel variant, prefill->decode consistency (where MoE
   routing flips, with the full prefill's expert choices), one MoE or SSD block's
   time split into its steps, and the mixtral, kimi-k2, mamba2 and jamba
-  smoke configs card vs CPU.
+  smoke configs card vs CPU;
+* encoders, cross-attention and the modality stubs (phase j), every
+  layer: roberta-large served by its prefill alone, flan-t5-xxl over 512
+  encoder positions and whisper-base over its 1500 frames (the encoder and
+  the cross-attention prefill on the flash kernel without a mask, cross
+  decode on the decode kernel over every encoder position), internvl2-1b
+  with 256 image embeddings before the prompt (GQA 14/2), each through
+  ``ServeEngine`` with its launches by kernel variant and prefill->decode
+  consistency, then their smoke configs card vs CPU; the attention kernels
+  are also held against their plain versions and timed at these shapes.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -192,6 +201,26 @@ SERVED_DECODE_CASES = [
 ] + [
     (4, 4096, 16, 8, 256, 4096, 50.0, "bfloat16"),  # gemma2-9b's full ring
 ]
+# the shapes of phase (j) the cases above lack: bidirectional flash at hd 64
+# and G = 1 (an encoder: 512 positions, and whisper's ragged 1500 frames),
+# cross flash with Sq != Skv and no mask (flan-t5's 64 decoder positions
+# over 512 encoder ones, whisper's 32 over 1500), causal flash at
+# internvl2's G = 7; decode over every slot of whisper's 1500-slot cross
+# cache (valid_len = T, not a multiple of 16) at G = 1, and decode at G = 7
+# (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
+ENCODER_FLASH_CASES = [
+    (B, Sq, Skv, H, KV, 64, dt, causal, 0, 0.0, 0)
+    for dt in ("bfloat16", "float32")
+    for B, Sq, Skv, H, KV, causal in ((2, 512, 512, 8, 8, False),
+                                      (1, 1500, 1500, 8, 8, False),
+                                      (2, 64, 512, 16, 16, False),
+                                      (2, 32, 1500, 8, 8, False),
+                                      (2, 300, 300, 14, 2, True))]
+# (B, T, H, KV, hd, valid_len, softcap, dtype)
+ENCODER_DECODE_CASES = [
+    (B, T, H, KV, 64, vl, 0.0, dt)
+    for dt in ("bfloat16", "float32")
+    for B, T, H, KV, vl in ((2, 1500, 8, 8, 1500), (3, 1536, 14, 2, 1100))]
 ATTN_TOL = {"bfloat16": 3e-2, "float32": 2e-5}  # tests/test_kernels.py's
 
 # the serving main path: full-width llama3.2-1b, 8 requests, 1024-token
@@ -409,7 +438,8 @@ def check_tick_cases(dev) -> None:
 def check_attention_cases(dev) -> None:
     """Both attention kernels against their plain versions on the card, at
     the test shapes of tests/test_kernels.py, the ragged shapes and the
-    served shapes (:data:`SERVED_FLASH_CASES`, :data:`SERVED_DECODE_CASES`);
+    served shapes (:data:`SERVED_FLASH_CASES`, :data:`SERVED_DECODE_CASES`,
+    :data:`ENCODER_FLASH_CASES`, :data:`ENCODER_DECODE_CASES`);
     the decode test shapes in bf16 and in float32 (every instance of the
     CUDA-core decode kernel's float32 path: G = 1, 2, 4, 8 and hd 64, 96,
     128, 256)."""
@@ -419,7 +449,7 @@ def check_attention_cases(dev) -> None:
     from repro_torch.kernels import flash_attention as fa
 
     flash = ([(*c[:10], c[2] - c[1]) for c in FLASH_CASES] + RAGGED_FLASH_CASES
-             + SERVED_FLASH_CASES)
+             + SERVED_FLASH_CASES + ENCODER_FLASH_CASES)
     for i, (B, Sq, Skv, H, KV, hd, dt, causal, window, cap, q_off) in enumerate(flash):
         rng = np.random.default_rng(100 + i)
         q = randn(rng, (B, Sq, H, hd), dt, dev)
@@ -450,7 +480,7 @@ def check_attention_cases(dev) -> None:
     print(f"kernel flash_attention: misaligned bf16 views at hd {fa.TC_HEAD_DIMS} raise "
           f"ValueError, no launch")
     decode = ([(*c[:7], dt) for dt in ("bfloat16", "float32") for c in DECODE_CASES]
-              + SERVED_DECODE_CASES)
+              + SERVED_DECODE_CASES + ENCODER_DECODE_CASES)
     for i, (B, T, H, KV, hd, vl, cap, dt) in enumerate(decode):
         rng = np.random.default_rng(200 + i)
         q = randn(rng, (B, H, hd), dt, dev)
@@ -537,12 +567,22 @@ def serve_main_path(dev) -> dict:
     return launches
 
 
+def split_path(eng, toks, extra=None):
+    """The logits of a prefill of the prompt ``toks`` minus its last token
+    (with the model's other inputs ``extra``), then one decode step of that
+    token at its position (after a vision stub's image)."""
+    extra = extra or {}
+    _, cache = eng.prefill(eng.params, {"tokens": toks[:, :-1], **extra})
+    pos = toks.shape[1] - 1 + prefix_len(extra)
+    logits, _ = eng.decode(eng.params, toks[:, -1:], pos, cache)
+    return logits
+
+
 def prefill_decode_gap(eng, toks, logits_full) -> float:
-    """Prefill of the prompt minus its last token, then one decode step of
-    that token, against the full prefill's last logits (rel_gap)."""
+    """:func:`split_path` against the full prefill's last logits
+    (rel_gap)."""
     import torch
-    _, cache = eng.prefill(eng.params, {"tokens": toks[:, :-1]})
-    logits_dec, _ = eng.decode(eng.params, toks[:, -1:], toks.shape[1] - 1, cache)
+    logits_dec = split_path(eng, toks)
     a, b = logits_full[:, -1], logits_dec[:, -1]
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite logits")
@@ -550,15 +590,15 @@ def prefill_decode_gap(eng, toks, logits_full) -> float:
 
 
 def condition_attention(cfg, params) -> None:
-    """Rescale the attention weights in place from the JAX package's init,
+    """Rescale the attention weights in place (the decoder's self and cross
+    attention, the encoder's self attention) from the JAX package's init,
     whose fan-in is the second-to-last dim (the head count for ``wq [D, H,
     hd]``, the head dim for ``wo [H, hd, D]``), to a fan-in over each
     product's contraction dims (D for wq/wk/wv, H * hd for wo)."""
     D, H, KV = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads
-    for blk in params["decoder"].values():
-        if "attn" not in blk:  # a Mamba2 block
-            continue
-        a = blk["attn"]
+    blocks = list(params["decoder"].values()) + (
+        [params["encoder"]] if "encoder" in params else [])
+    for a in (blk[k] for blk in blocks for k in ("attn", "cross") if k in blk):
         a["wq"].mul_((H / D) ** 0.5)
         a["wk"].mul_((KV / D) ** 0.5)
         a["wv"].mul_((KV / D) ** 0.5)
@@ -609,7 +649,8 @@ def serve_card_vs_cpu(dev, arch: str = SERVE_ARCH) -> None:
     and on the CPU (their plain versions) with the same weights: logits
     within 1e-4 relative and the same greedy tokens. The 40-token prompt is
     longer than gemma2's smoke window of 16, so its ring placement and ring
-    decode run."""
+    decode run; an encoder-decoder model takes :data:`SMOKE_ENCODER_LEN`
+    encoder positions, a vision stub its image embeddings."""
     import numpy as np
     import torch
     from repro_torch.configs import smoke_config
@@ -624,12 +665,14 @@ def serve_card_vs_cpu(dev, arch: str = SERVE_ARCH) -> None:
 
     cpu.params = to_cpu(gpu.params)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
-    lg, _ = gpu.prefill(gpu.params, {"tokens": torch.as_tensor(tokens, device=dev)})
-    lc, _ = cpu.prefill(cpu.params, {"tokens": torch.as_tensor(tokens)})
+    extra = extra_inputs(cfg, 2, SMOKE_ENCODER_LEN, np.random.default_rng(2), dev)
+    extra_cpu = to_cpu(extra)
+    lg, _ = gpu.prefill(gpu.params, {"tokens": torch.as_tensor(tokens, device=dev), **extra})
+    lc, _ = cpu.prefill(cpu.params, {"tokens": torch.as_tensor(tokens), **extra_cpu})
     rel = rel_gap(lc, lg.cpu())
     if not rel < 1e-4:
         raise AssertionError(f"smoke prefill logits card vs CPU rel {rel:.3e}")
-    a, b = gpu.generate(tokens, 8), cpu.generate(tokens, 8)
+    a, b = gpu.generate(tokens, 8, extra), cpu.generate(tokens, 8, extra_cpu)
     if not np.array_equal(a, b):
         raise AssertionError(f"smoke greedy tokens differ card vs CPU: {a} {b}")
     print(f"serving {cfg.name} float32 card vs CPU: prefill logits rel gap "
@@ -671,6 +714,25 @@ MOE_SSM_SERVE = [
     ("mamba2-370m", None, 8, 1024, 128, None),
 ]
 MOE_SSM_SMOKE = ("mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b")
+# (j) the encoder-only, encoder-decoder and vision-stub models at full
+# width, every layer, random weights from seed 0 in bf16: (arch, layers
+# served (None: all), requests, prompt tokens, new tokens, the variant each
+# attention kernel must run). roberta-large is served by its prefill alone
+# (0 new tokens; causal, as the JAX prefill_fn runs it); flan-t5-xxl and
+# whisper-base attend ENCODER_LEN encoder positions (whisper's
+# max_encoder_len of 1500 frames) in their encoder and cross-attention;
+# internvl2-1b puts its 256 image embeddings before the prompt (GQA 14/2: G
+# = 7). flan-t5-xxl is ~11.1 B parameters, 22.3 GB of bf16; its largest
+# stacked leaf ([24, 4096, 10240]) draws 4.0 GB in float32.
+TENSOR_CORES = {"flash": "tensor_core", "decode": "tensor_core"}
+ENCODER_SERVE = [
+    ("roberta-large", None, 8, 512, 0, TENSOR_CORES),
+    ("flan-t5-xxl", None, 8, 64, 64, TENSOR_CORES),
+    ("whisper-base", None, 8, 32, 128, TENSOR_CORES),
+    ("internvl2-1b", None, 8, 768, 128, TENSOR_CORES),
+]
+ENCODER_LEN = {"flan-t5-xxl": 512, "whisper-base": 1500}
+SMOKE_ENCODER_LEN = 24  # encoder positions of the smoke configs card vs CPU
 # where bf16 routing flips between the full prefill and the split path,
 # prefill->decode consistency is also gated in float32, at the published
 # widths and the depth and batch that fit the card in float32: (layers,
@@ -730,13 +792,36 @@ def routing_flips(own, forced) -> tuple:
     return n_diff, margin
 
 
-def routed_gap(eng, toks) -> tuple:
+def extra_inputs(cfg, B: int, enc_len: int, rng, dev) -> dict:
+    """The model's inputs beside its tokens, seeded standard normals in
+    bf16 on ``dev`` (the JAX launcher's draw): ``enc_embeds`` [B, enc_len,
+    D] of an encoder-decoder model, ``image_embeds`` [B, Ni, D] of a vision
+    stub; else none (nothing drawn)."""
+    import torch
+    if cfg.is_encoder_decoder:
+        shape = (B, enc_len, cfg.d_model)
+    elif cfg.frontend == "vision_stub":
+        shape = (B, cfg.num_image_embeds, cfg.d_model)
+    else:
+        return {}
+    name = "enc_embeds" if cfg.is_encoder_decoder else "image_embeds"
+    return {name: torch.as_tensor(rng.standard_normal(shape, dtype="float32"),
+                                  device=dev).to(torch.bfloat16)}
+
+
+def prefix_len(extra) -> int:
+    """Decoder positions before the prompt: the image embeddings, if any."""
+    return extra["image_embeds"].shape[1] if "image_embeds" in extra else 0
+
+
+def routed_gap(eng, toks, extra=None) -> tuple:
     """Prefill->decode consistency through MoE blocks: the full prefill of
     ``toks`` (its routing recorded) against a prefill of all but the last
-    token plus one decode step of it (:func:`prefill_decode_gap`'s split
-    path). Where the split path's own expert choices differ from the full
-    prefill's (a discrete top-k flips at near ties, and a flip moves a
-    token by a whole expert's share), the split path runs again taking
+    token plus one decode step of it (:func:`split_path`; ``extra`` the
+    model's other inputs). Where the split path's own expert choices
+    differ from the full prefill's (a discrete top-k flips at near ties,
+    and a flip moves a token by a whole expert's share), the split path
+    runs again taking
     the full prefill's choices (:func:`moe_routing`). Returns (the gap
     gated: the split path's own when no choice differs, else the one with
     the full prefill's choices; the split path's own gap; its choices that
@@ -745,16 +830,16 @@ def routed_gap(eng, toks) -> tuple:
     :func:`prefill_decode_gap`'s and the rest 0."""
     import torch
     B, S = toks.shape
+    extra = extra or {}
     with moe_routing() as full_routing:
-        full, _ = eng.prefill(eng.params, {"tokens": toks})
+        full, _ = eng.prefill(eng.params, {"tokens": toks, **extra})
     choices = [topi.view(B, S, -1) for topi, _ in full_routing]
     forced = ([c[:, :-1].reshape(B * (S - 1), -1) for c in choices]
               + [c[:, -1] for c in choices])
 
     def split(take=None):
         with moe_routing(take) as routing:
-            _, cache = eng.prefill(eng.params, {"tokens": toks[:, :-1]})
-            dec, _ = eng.decode(eng.params, toks[:, -1:], S - 1, cache)
+            dec = split_path(eng, toks, extra)
         a, b = full[:, -1], dec[:, -1]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError("non-finite logits")
@@ -882,11 +967,13 @@ def float32_consistency(arch: str, dev) -> float:
 
 
 def serve_full_width(dev) -> dict:
-    """(h) and (i): ServeEngine on each :data:`PAPER_SERVE` and
-    :data:`MOE_SSM_SERVE` model at full width: init time, weights and init
-    peak memory; one ``generate`` with its launches by kernel and variant
-    (attention models: every flash and decode launch on the expected
-    variant; mamba2: none) and its output tokens/s; prefill->decode
+    """(h), (i) and (j): ServeEngine on each :data:`PAPER_SERVE`,
+    :data:`MOE_SSM_SERVE` and :data:`ENCODER_SERVE` model at full width:
+    init time, weights and init peak memory; one ``generate`` with its
+    launches by kernel and variant (attention models: every flash and
+    decode launch on the expected variant, the encoder's and the
+    cross-attention's counted; mamba2: none) and its prompt and output
+    tokens/s; prefill->decode
     consistency with the attention weights at contraction fan-in (the JAX
     init's gap printed, not gated; :func:`serve_consistency`) by
     :func:`routed_gap` (where the split path's own expert choices differ
@@ -908,70 +995,79 @@ def serve_full_width(dev) -> dict:
 
     # each phase draws its prompts and block inputs from a generator of its
     # own (seed 0), in its models' order
-    rngs = {"(h)": np.random.default_rng(0), "(i)": np.random.default_rng(0)}
+    rngs = {p: np.random.default_rng(0) for p in ("(h)", "(i)", "(j)")}
     served = {}
-    for entry in PAPER_SERVE + MOE_SSM_SERVE:
+    for entry in PAPER_SERVE + MOE_SSM_SERVE + ENCODER_SERVE:
         arch, layers, B, S, n_out, variants = entry
-        phase = "(h)" if entry in PAPER_SERVE else "(i)"
+        phase = ("(h)" if entry in PAPER_SERVE else "(i)" if entry in MOE_SSM_SERVE
+                 else "(j)")
         rng = rngs[phase]
         cfg = get_config(arch)
         if layers is not None:
             cfg = cfg.replace(num_layers=layers)
+        enc_len = ENCODER_LEN.get(arch, 0)
+        n_pre = cfg.num_image_embeds if cfg.frontend == "vision_stub" else 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = ServeEngine(cfg, S + n_out, B, device="cuda")
+        # the shape's sequence: encoder positions, image, prompt, new tokens
+        eng = ServeEngine(cfg, enc_len + n_pre + S + n_out, B, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         weights_gb = torch.cuda.memory_allocated() / 1e9
         init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        extra = extra_inputs(cfg, B, enc_len, rng, dev)
         tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         toks = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+        batch = {"tokens": toks, **extra}
         t0 = time.perf_counter()
-        full, cache = eng.prefill(eng.params, {"tokens": toks})  # first call
+        full, cache = eng.prefill(eng.params, batch)  # first call
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         del cache, full
         reset_counts()
         t0 = time.perf_counter()
-        out = eng.generate(tokens, n_out)
+        out = eng.generate(tokens, n_out, extra)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches = counts()
         by_variant = {"flash": dict(fa.flash_attention.launches_by_variant),
                       "decode": dict(dec.decode_attention.launches_by_variant)}
+        # a flash launch per encoder layer, per decoder attention block and
+        # per cross-attention block; a decode launch per decoder attention
+        # and cross-attention block and new token
         n_attn = 0 if variants is None else cfg.num_layers
-        if not (launches == {"polca_tick": 0, "flash_attention": n_attn,
-                             "decode_attention": n_attn * n_out}
-                and (variants is None or all(
-                    by_variant[kind][want] == launches[f"{kind}_attention"]
-                    for kind, want in variants.items()))):
+        n_attn += n_attn if cfg.is_encoder_decoder else 0
+        want = {"polca_tick": 0, "flash_attention": cfg.num_encoder_layers + n_attn,
+                "decode_attention": n_attn * n_out}
+        if not (launches == want and (variants is None or all(
+                by_variant[kind][v] == launches[f"{kind}_attention"]
+                for kind, v in variants.items()))):
             raise AssertionError(f"{arch}: generate launched {launches}, by variant "
-                                 f"{by_variant}; want {n_attn} flash and "
-                                 f"{n_attn * n_out} decode launches on {variants}")
+                                 f"{by_variant}; want {want} on {variants}")
         if out.shape != (B, n_out) or not ((out >= 0) & (out < cfg.vocab_size)).all():
             raise AssertionError(f"{arch}: bad generated tokens {out.shape}")
-        rel_init, _, flips_init, _, _ = routed_gap(eng, toks)
+        rel_init, _, flips_init, _, _ = routed_gap(eng, toks, extra)
         condition_attention(cfg, eng.params)
         prefill_runs = []
         for _ in range(3):
             full = cache = None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            full, cache = eng.prefill(eng.params, {"tokens": toks})
+            full, cache = eng.prefill(eng.params, batch)
             torch.cuda.synchronize()
             prefill_runs.append(time.perf_counter() - t0)
         prefill_s = sorted(prefill_runs)[1]
-        # generate's decode loop, timed alone
-        tok = full[:, -1].argmax(dim=-1, keepdim=True)
+        # generate's decode loop, timed alone (none for the prefill alone)
+        tok, logits = full[:, -1].argmax(dim=-1, keepdim=True), None
         t0 = time.perf_counter()
         for i in range(n_out):
-            logits, cache = eng.decode(eng.params, tok, S + i, cache)
+            logits, cache = eng.decode(eng.params, tok, n_pre + S + i, cache)
             tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) / n_out * 1e3
-        del cache, full, logits
-        rel, rel_own, flips_own, flips, margin = routed_gap(eng, toks)
+        decode_ms = (time.perf_counter() - t0) / n_out * 1e3 if n_out else None
+        del cache, full, tok, logits
+        rel, rel_own, flips_own, flips, margin = routed_gap(eng, toks, extra)
         if not rel < SERVE_REL_TOL:
             raise AssertionError(f"{arch}: prefill->decode mismatch rel={rel:.3e}")
         if not margin < NEAR_TIE:
@@ -979,7 +1075,8 @@ def serve_full_width(dev) -> dict:
                                  f"from the full prefill's by a margin {margin:.3e} "
                                  f">= {NEAR_TIE}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        served[arch] = {"layers": cfg.num_layers, **launches, "by_variant": by_variant}
+        served[arch] = {"layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers,
+                        **launches, "by_variant": by_variant}
         routing = ("" if not cfg.moe_num_experts else
                    f"; the split path's own routing differed from the full "
                    f"prefill's in {flips_own} expert choices ({flips_init} with the "
@@ -989,15 +1086,19 @@ def serve_full_width(dev) -> dict:
                        f"the split path's with the full prefill's choices, where "
                        f"{flips} of its own differ (largest probability margin "
                        f"{margin:.3e} < {NEAR_TIE})"))
+        inputs = "".join(f", {name} {list(x.shape)}" for name, x in extra.items())
+        decode = (f"decode {decode_ms:.3f} ms/token step ({n_out} steps timed alone)"
+                  if n_out else "no decode (the prefill alone)")
         say(f"{phase} serving {arch} (full width, {cfg.num_layers}"
             f"{'' if layers is None else ' of ' + str(get_config(arch).num_layers)} "
-            f"layers, {'no attention' if variants is None else f'hd {cfg.head_dim}'}, "
+            f"layers{f' + {cfg.num_encoder_layers} encoder layers' if cfg.num_encoder_layers else ''}, "
+            f"{'no attention' if variants is None else f'hd {cfg.head_dim}'}, "
             f"random weights seed 0, bf16): init {init_s:.2f} s (peak "
             f"{init_peak_gb:.2f} GB), weights {weights_gb:.2f} GB; {B} x {S}-token "
-            f"prompts, {n_out} new tokens: prefill {prefill_s:.4f} s (median of "
+            f"prompts{inputs}, {n_out} new tokens: prefill {prefill_s:.4f} s (median of "
             f"{' / '.join(f'{t:.4f}' for t in prefill_runs)}; first call "
-            f"{first_s:.4f} s), decode {decode_ms:.3f} ms/token step ({n_out} steps "
-            f"timed alone), generate {gen_s:.3f} s, {B * n_out / gen_s:.1f} output "
+            f"{first_s:.4f} s; {B * S / prefill_s:.0f} prompt tokens/s), {decode}, "
+            f"generate {gen_s:.3f} s, {B * n_out / gen_s:.1f} output "
             f"tokens/s; peak memory {peak_gb:.2f} GB; "
             f"launches {launches} (by variant {by_variant}); prefill->decode rel "
             f"gap {rel:.3e} < {SERVE_REL_TOL} with attention weights at "
@@ -1032,11 +1133,12 @@ def serve_full_width(dev) -> dict:
                 f"{cfg.num_layers} layers = "
                 f"{m['decode_ms'] * cfg.num_layers / decode_ms:.1%} of a decode step")
             served[arch]["ssd"] = m
-        del eng, toks
+        del eng, toks, batch, extra
         torch.cuda.empty_cache()
         if flips_own:
             served[arch]["float32"] = float32_consistency(arch, dev)
-    for arch in [a for a, *_ in PAPER_SERVE] + list(MOE_SSM_SMOKE):
+    for arch in ([a for a, *_ in PAPER_SERVE] + list(MOE_SSM_SMOKE)
+                 + [a for a, *_ in ENCODER_SERVE]):
         serve_card_vs_cpu(dev, arch)
     return served
 
@@ -1110,22 +1212,28 @@ def library_rows(row: dict, softcap: float, sdpa_ms: float, flex_ms, flex_err) -
 
 
 def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
-               window: int = 0, softcap: float = 0.0, calls: int = 20) -> dict:
-    """The flash kernel at one bf16 causal prefill shape, held against its
-    plain version: device time, call time, the plain version's and the
-    library's device times (:func:`library_rows`: flex_attention with a
-    softcap or a window, whose block mask skips the blocks outside it;
-    scaled_dot_product_attention takes a window as a boolean mask), the
-    bound and the error."""
+               causal: bool = True, Skv: int = 0, window: int = 0,
+               softcap: float = 0.0, calls: int = 20) -> dict:
+    """The flash kernel at one bf16 prefill shape (S queries over ``Skv``
+    keys, S by default; causal, or bidirectional as an encoder's and a
+    cross-attention's), held against its plain version: device time, call
+    time, the plain version's and the library's device times
+    (:func:`library_rows`: flex_attention with a softcap or a window,
+    whose block mask skips the blocks outside it;
+    scaled_dot_product_attention takes a window as a boolean mask, and no
+    mask where nothing is masked), the bound and the error."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
+    Skv = Skv or S
     q = randn(rng, (B, S, H, hd), "bfloat16", dev)
-    k = randn(rng, (B, S, KV, hd), "bfloat16", dev)
-    v = randn(rng, (B, S, KV, hd), "bfloat16", dev)
-    kw = dict(causal=True, window=window, softcap=softcap)
-    label = f"flash B={B} S={S} H={H} KV={KV} hd={hd} window={window} softcap={softcap}"
+    k = randn(rng, (B, Skv, KV, hd), "bfloat16", dev)
+    v = randn(rng, (B, Skv, KV, hd), "bfloat16", dev)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    seq = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
+    label = (f"flash B={B} {seq} H={H} KV={KV} hd={hd} {'causal' if causal else 'bidirectional'} "
+             f"window={window} softcap={softcap}")
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -1141,7 +1249,7 @@ def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
     del want
     lib_kw = (dict(attn_mask=fa.attention_mask(S, S, causal=True, window=window,
                                                q_offset=0, device=dev))
-              if window else dict(is_causal=True))
+              if window else dict(is_causal=causal))
     kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     sdpa_ms = device_ms([lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, **lib_kw)], calls=calls)
@@ -1152,14 +1260,16 @@ def time_flash(dev, rng, B: int, S: int, H: int, KV: int, hd: int, *,
                            calls=3, replays=2),
         max_abs_err=err)
     lib = library_rows(row, softcap, sdpa_ms, flex_ms, flex_err)
-    # attended (query, key) pairs: min(i + 1, window) for query i
-    pairs = (S * (S + 1) / 2 if not window or window >= S else
+    # attended (query, key) pairs: every one without a mask, else
+    # min(i + 1, window) for query i
+    pairs = (S * Skv if not causal else S * (S + 1) / 2 if not window or window >= S else
              window * (window + 1) / 2 + (S - window) * window)
     flops = 4 * B * H * hd * pairs
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)  # q, o, k, v in bf16
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * KV * hd)  # q, o, k, v in bf16
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
-    print(f"kernel flash_attention B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal "
-          f"window={window} softcap={softcap} ({fa.kernel_variant(q.dtype, hd)}): "
+    print(f"kernel flash_attention B={B} {seq} H={H} KV={KV} hd={hd} bf16 "
+          f"{'causal' if causal else 'bidirectional'} window={window} softcap={softcap} "
+          f"({fa.kernel_variant(q.dtype, hd)}): "
           f"device {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms (plain version "
           f"{row['plain_ms']:.4f} ms, {lib}, device times; bound {row['bound_ms']:.4f} "
           f"ms by {row['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
@@ -1173,7 +1283,8 @@ DECODE_SETS = 4  # cache sets the decode timing cycles through: 100 MB > L2
 def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int, *,
                 softcap: float = 0.0) -> dict:
     """The decode kernel at one bf16 shape, as :func:`time_flash`, the
-    timed calls cycling through :data:`DECODE_SETS` caches."""
+    timed calls cycling through :data:`DECODE_SETS` caches (SDPA without a
+    mask when all ``T`` slots attend, as a cross-attention's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec
@@ -1195,7 +1306,7 @@ def time_decode(dev, rng, B: int, T: int, H: int, KV: int, hd: int, vl: int, *,
         flex_err = compare_close(flex(*lib_sets[0])[:, :, 0], want,
                                  ATTN_TOL["bfloat16"], f"flex_attention at {label}")
         flex_ms = device_ms([lambda s=s: flex(*s) for s in lib_sets], calls=64)
-    mask = (torch.arange(T, device=dev) < vl)[None, None, None, :]
+    mask = None if vl == T else (torch.arange(T, device=dev) < vl)[None, None, None, :]
     sdpa_ms = device_ms([lambda s=s: F.scaled_dot_product_attention(
         *s, attn_mask=mask, enable_gqa=True) for s in lib_sets], calls=64)
     row = dict(
@@ -1227,13 +1338,44 @@ SERVED_TIMINGS = {"hd96": "gpt-neox-20b", "opt30b": "opt-30b",
                   "mixtral": "mixtral-8x7b", "kimi": "kimi-k2-1t-a32b"}
 
 
+def time_encoders(dev, rng, flash: dict, decode: dict) -> None:
+    """Both attention kernels at the attention shapes of phase (j), into
+    ``flash`` and ``decode`` by key: an encoder-decoder model's encoder
+    (bidirectional over its :data:`ENCODER_LEN` positions), its
+    cross-attention prefill (the prompt over them) and cross decode step
+    (every encoder position); the causal prefill of roberta-large and of
+    internvl2-1b (image and prompt, G = 7); the decoder's self-attention
+    step halfway through the new tokens. Without a mask, the library is
+    scaled_dot_product_attention without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import decoder_slots
+
+    for arch, _, B, S, n_out, _ in ENCODER_SERVE:
+        c = get_config(arch)
+        heads = (c.num_heads, c.num_kv_heads, c.head_dim)
+        key = arch.split("-")[0]
+        enc = ENCODER_LEN.get(arch, 0)
+        n_pre = c.num_image_embeds if c.frontend == "vision_stub" else 0
+        if enc:
+            flash[f"{key}_encoder"] = time_flash(dev, rng, B, enc, *heads, causal=False)
+            flash[f"{key}_cross"] = time_flash(dev, rng, B, S, *heads, causal=False, Skv=enc)
+            decode[f"{key}_cross"] = time_decode(dev, rng, B, enc, *heads, enc)
+        else:
+            flash[key] = time_flash(dev, rng, B, n_pre + S, *heads)
+        if n_out:
+            decode[key if not enc else f"{key}_self"] = time_decode(
+                dev, rng, B, decoder_slots(c, enc + n_pre + S + n_out), *heads,
+                n_pre + S + n_out // 2)
+
+
 def time_attention(dev, rng_seed: int = 7) -> list:
     """Both attention kernels at the serving main-path shapes (llama3.2-1b),
     the flash kernel also at the qwen3-8b / yi-34b head dim of 128, and both
     at every attention shape of phases (h) and (i) (:data:`SERVED_TIMINGS`):
     a prefill of the served prompt, and a decode step halfway through the
-    new tokens (a sliding-window layer: its full ring of W slots), each held
-    against its plain version."""
+    new tokens (a sliding-window layer: its full ring of W slots), and of
+    phase (j) (:func:`time_encoders`), each held against its plain
+    version."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.config import LOCAL
@@ -1263,6 +1405,7 @@ def time_attention(dev, rng_seed: int = 7) -> list:
             flash[key] = time_flash(dev, rng, *heads, softcap=cap, calls=calls)
             decode[key] = time_decode(dev, rng, B, cache_len(S + n_out), *heads[2:],
                                       S + n_out // 2, softcap=cap)
+    time_encoders(dev, rng, flash, decode)
     flash.update(name="flash_attention",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:32")
@@ -2399,14 +2542,14 @@ def main() -> int:
     serve_consistency(dev)
     serve_card_vs_cpu(dev)
 
-    # 6h-i. the paper's dense decoders and gemma2, then the MoE, Mamba2/SSD
-    # and hybrid decoders, at full width
+    # 6h-j. the paper's dense decoders and gemma2, the MoE, Mamba2/SSD and
+    # hybrid decoders, then the encoders and the vision stub, at full width
     t0 = time.perf_counter()
     served = serve_full_width(dev)
-    say(f"(h, i) full-width decoders: phase total {time.perf_counter() - t0:.2f} s")
+    say(f"(h, i, j) full-width models: phase total {time.perf_counter() - t0:.2f} s")
 
     # 7. the attention kernels at the serving main-path shapes, and at the
-    # shapes of phases (h) and (i)
+    # shapes of phases (h), (i) and (j)
     attn = time_attention(dev)
 
     kernels = [{
@@ -2434,7 +2577,7 @@ def main() -> int:
                         "served": {arch: {"layers": v["layers"], "launches": v[row["name"]],
                                           "by_variant": v["by_variant"][row["name"].split("_")[0]]}
                                    for arch, v in served.items()},
-                        **{k: row[k] for k in ("hd128", *SERVED_TIMINGS) if k in row}})
+                        **{k: v for k, v in row.items() if isinstance(v, dict)}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

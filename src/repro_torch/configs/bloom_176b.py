@@ -18,3 +18,9 @@ CONFIG = ModelConfig(
     pattern=(ATTN,),
     mlp_type="gelu",
 )
+
+SMOKE = CONFIG.replace(
+    name="bloom-176b-smoke",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+    d_ff=128, vocab_size=256,
+)

@@ -11,6 +11,11 @@ do; stdout stays clean.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --requests 8 --prompt 1024 --out-tokens 128 --report-power
+
+An encoder-decoder model (flan-t5-xxl, whisper-base) is served with
+seeded encoder inputs of the JAX launcher's length, a vision stub
+(internvl2-1b) with seeded image embeddings, and an encoder-only model
+(roberta-large) with ``--out-tokens 0``: the prefill alone.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.power_model import A100, ServerPower
 from repro_torch.core.workload import request_timing
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_decode_step, build_prefill_step
+from repro_torch.launch.inputs import split_seq
+from repro_torch.launch.steps import build_decode_step, build_prefill_step, decoder_slots
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.param import init_params
@@ -42,7 +48,9 @@ class ServeEngine:
     but the norm scales is kept in the activation dtype
     (:func:`~repro_torch.models.model.cast_weights`); ``params`` may be
     replaced by any tree of the same layout, such as
-    :func:`~repro_torch.models.model.load_jax_params`'s."""
+    :func:`~repro_torch.models.model.load_jax_params`'s. ``max_len`` is
+    the shape's sequence length: an encoder-decoder model's decoder cache
+    holds :func:`~repro_torch.launch.steps.decoder_slots` of it."""
 
     def __init__(self, cfg, max_len: int, batch: int, device="cuda", seed: int = 0):
         self.cfg = cfg
@@ -53,14 +61,33 @@ class ServeEngine:
             model_mod.cast_weights(cfg, model_mod.model_specs(cfg)), gen)
         self.prefill = build_prefill_step(cfg, ShapeConfig("serve", max_len, batch, "prefill"))
         self.decode = build_decode_step(cfg)
+        self.slots = decoder_slots(cfg, max_len)
 
-    def generate(self, tokens: np.ndarray, n_out: int) -> np.ndarray:
-        """Greedy decode. tokens: [B, S] ints. Returns [B, n_out] int32."""
+    def generate(self, tokens: np.ndarray, n_out: int, extra_inputs=None) -> np.ndarray:
+        """Greedy decode. tokens: [B, S] ints; ``extra_inputs`` the model's
+        other inputs by name, arrays or tensors: ``enc_embeds`` [B, enc_S,
+        D] of an encoder-decoder model (any enc_S), ``image_embeds`` [B,
+        Ni, D] of a vision stub. Returns [B, n_out] int32; ``n_out = 0``
+        runs the prefill alone (an encoder-only model is served so).
+
+        Decode starts at position Ni + S, after the image and the prompt
+        (the JAX engine starts at S, where its first step overwrites a
+        cached position). Raises ``ValueError`` before the prefill if the
+        Ni + S + n_out positions exceed the decoder cache's slots (the JAX
+        cache update clamps past its end)."""
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
-        logits, cache = self.prefill(self.params, {"tokens": toks})
+        batch = {"tokens": toks}
+        for name, x in (extra_inputs or {}).items():
+            batch[name] = torch.as_tensor(x, device=self.device)
         pos = toks.shape[1]
+        if self.cfg.frontend == "vision_stub":
+            pos += batch["image_embeds"].shape[1]
+        if pos + n_out > self.slots:
+            raise ValueError(f"{self.cfg.name}: {pos} prompt positions and {n_out} new "
+                             f"tokens exceed the decoder cache's {self.slots} slots")
+        logits, cache = self.prefill(self.params, batch)
         tok = logits[:, -1, :].argmax(dim=-1, keepdim=True)
-        outs = []
+        outs = [tok[:, :0]]  # [B, 0]: the result of n_out = 0
         for i in range(n_out):
             outs.append(tok)
             logits, cache = self.decode(self.params, tok, pos + i, cache)
@@ -82,18 +109,31 @@ def main(argv=None):
 
     if args.model_par != 1:
         raise NotImplementedError("--model-par > 1: tensor parallelism waits "
-                                  "for ROADMAP Queue 1 item 4")
+                                  "for ROADMAP Queue 1 item 4c")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     max_len = args.prompt + args.out_tokens
+    if cfg.frontend == "vision_stub":  # the decoder also holds the image
+        max_len += cfg.num_image_embeds
     eng = ServeEngine(cfg, max_len, args.requests, device=args.device)
 
     rng = np.random.default_rng(0)
+    extra = {}
+    if cfg.is_encoder_decoder:
+        enc_S, _ = split_seq(cfg, args.prompt + args.out_tokens)
+        extra["enc_embeds"] = torch.tensor(
+            rng.standard_normal((args.requests, enc_S, cfg.d_model)), dtype=torch.bfloat16)
+    elif cfg.frontend == "vision_stub":
+        extra["image_embeds"] = torch.tensor(
+            rng.standard_normal((args.requests, cfg.num_image_embeds, cfg.d_model)),
+            dtype=torch.bfloat16)
     tokens = rng.integers(0, cfg.vocab_size, (args.requests, args.prompt)).astype(np.int32)
     t0 = time.perf_counter()
-    out = eng.generate(tokens, args.out_tokens)
+    out = eng.generate(tokens, args.out_tokens, extra)
     dt = time.perf_counter() - t0
+    step = (f" ({dt / args.out_tokens * 1e3:.1f} ms/token step)" if args.out_tokens
+            else " (prefill only)")
     log.info(f"served batch={args.requests} prompt={args.prompt} out={args.out_tokens} "
-             f"on {eng.device} in {dt:.2f}s ({dt / args.out_tokens * 1e3:.1f} ms/token step)")
+             f"on {eng.device} in {dt:.2f}s{step}")
     log.info("sample output tokens: %s", out[0, :16])
 
     if args.report_power:

@@ -9,11 +9,17 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
+def decoder_slots(cfg: ModelConfig, seq_len: int) -> int:
+    """Slots of a global block's cache for sequences of ``seq_len`` tokens:
+    ``cache_len`` of the decoder's share (:func:`~repro_torch.launch.inputs.
+    split_seq`; an encoder-decoder model gives the encoder its part)."""
+    return model_mod.cache_len(inputs_mod.split_seq(cfg, seq_len)[1])
+
+
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig):
     """``prefill_step(params, batch) -> (logits, cache)`` with a cache of
-    ``cache_len(seq_len)`` slots."""
-    _, dec_S = inputs_mod.split_seq(cfg, shape.seq_len)
-    max_len = model_mod.cache_len(dec_S)
+    :func:`decoder_slots` slots."""
+    max_len = decoder_slots(cfg, shape.seq_len)
 
     def prefill_step(params, batch):
         return model_mod.prefill_fn(cfg, params, batch, max_len=max_len)

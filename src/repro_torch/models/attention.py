@@ -1,5 +1,6 @@
 """Attention: GQA, sliding-window prefill and ring-buffer decode, logit
-softcap, qk-norm (PyTorch port of ``repro.models.attention``).
+softcap, qk-norm, the encoder's bidirectional self attention and the
+decoder's cross-attention (PyTorch port of ``repro.models.attention``).
 
 The JAX model attends through its XLA path (``_chunk_scores``) and leaves
 the Pallas kernels to the TPU target. The port does what the JAX package
@@ -18,9 +19,6 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.param import ParamSpec
-
-NOT_PORTED = ("waits for ROADMAP Queue 1 item 4 (encoders, cross-attention "
-              "and modality frontends)")
 
 
 def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -68,7 +66,9 @@ def _out_proj(cfg, p, out):
 
 def self_attention(cfg: ModelConfig, p: dict, x, *, positions, causal: bool,
                    window: int = 0, return_kv: bool = False):
-    """Full-sequence self attention (prefill). x: [B, S, D]; positions: [S]."""
+    """Full-sequence self attention: the decoder's prefill (causal), the
+    encoder's (``causal=False``: every position attends every other).
+    x: [B, S, D]; positions: [S]."""
     q = _project_q(cfg, p, x, positions)
     k, v = _project_kv(cfg, p, x, positions)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -80,7 +80,27 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions, causal: bool,
 
 
 def cross_attention(cfg: ModelConfig, p: dict, x, enc_kv):
-    raise NotImplementedError(f"cross-attention (encoder-decoder) {NOT_PORTED}")
+    """Decoder cross-attention over the encoder's K/V (no mask, no RoPE).
+
+    x: [B, Sq, D]; enc_kv: (k, v), each [B, enc_S, KV, hd]. Every query
+    attends every encoder position: the flash kernel with ``causal=False``
+    over Sq decoder positions, or for one position (a decode step) the
+    decode kernel at ``valid_len = enc_S``. Returns [B, Sq, D]."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cfg.activation_dtype))
+    k, v = enc_kv
+    if q.shape[1] == 1:
+        out = ops.decode_attention(q[:, 0], k, v, k.shape[1],
+                                   softcap=cfg.attn_logit_softcap)[:, None]
+    else:
+        out = ops.flash_attention(q, k, v, causal=False,
+                                  softcap=cfg.attn_logit_softcap)
+    return _out_proj(cfg, p, out)
+
+
+def project_cross_kv(cfg: ModelConfig, p: dict, enc_out):
+    """The cross-attention K/V of the encoder output [B, enc_S, D]: (k, v),
+    each [B, enc_S, KV, hd], without RoPE."""
+    return _project_kv(cfg, p, enc_out, None)
 
 
 def decode_self_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,

@@ -1,5 +1,5 @@
-"""The model: parameter specs, prefill and decode (PyTorch port of
-``repro.models.model``), for decoders.
+"""The model: parameter specs, prefill and decode (PyTorch port of the
+serving half of ``repro.models.model``).
 
 Plain functions over a parameter dict, as in the JAX package. The tree has
 the JAX layout, with each block's parameters stacked over ``num_groups`` on
@@ -21,8 +21,19 @@ An attention block carries an FFN sublayer, and a Mamba block does too when
 ``ffn_every_block`` (jamba). The FFN is a dense MLP, or on every
 ``moe_layer_period``-th block a mixture of experts
 (:mod:`repro_torch.models.moe`) plus the shared expert of
-``moe_shared_expert_ff``. Encoders, cross-attention and modality frontends
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 4).
+``moe_shared_expert_ff``.
+
+An encoder-decoder model (``num_encoder_layers > 0``: flan-t5, whisper)
+runs its encoder over ``batch["enc_embeds"]`` [B, enc_S, D] (whisper's
+audio frontend is that input itself): ``num_encoder_layers`` blocks of
+bidirectional self attention and FFN, then ``enc_norm``. Each decoder
+attention block then attends the encoder output through its ``cross``
+weights after its self attention, and caches the cross K/V as ``cross_k``
+and ``cross_v`` [L, B, enc_S, KV, hd]. An encoder-only model (roberta)
+takes its logits from ``mlm_head``; its prefill is causal, as the JAX
+model's ``prefill_fn`` is. A vision-stub model (internvl2) prepends
+``batch["image_embeds"]`` [B, Ni, D] to the token embeddings, so the
+prompt's positions are ``0 .. Ni + S - 1``.
 """
 
 from __future__ import annotations
@@ -36,21 +47,9 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.config import LOCAL, MAMBA, ModelConfig
+from repro_torch.models.config import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.models.param import ParamSpec, tree_map_specs
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve."""
-    missing = []
-    if cfg.is_encoder_decoder or cfg.is_encoder_only:
-        missing.append("encoders and cross-attention")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} {attn_mod.NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -69,8 +68,9 @@ def _is_moe_block(cfg: ModelConfig, idx: int, kind: str) -> bool:
     return idx % cfg.moe_layer_period == cfg.moe_layer_period - 1
 
 
-def block_specs(cfg: ModelConfig, idx: int, kind: str) -> dict:
-    """Block ``idx`` of the pattern, of kind ``kind``."""
+def block_specs(cfg: ModelConfig, idx: int, kind: str, *, cross: bool = False) -> dict:
+    """Block ``idx`` of the pattern, of kind ``kind``; with ``cross``, an
+    attention block also carries the cross-attention weights."""
     D = cfg.d_model
     p: Dict[str, Any] = {}
     if kind == MAMBA:
@@ -81,6 +81,9 @@ def block_specs(cfg: ModelConfig, idx: int, kind: str) -> dict:
         p["attn"] = attn_mod.attn_specs(cfg)
         if cfg.use_post_norm:
             p["post_ln_attn"] = rmsnorm_spec(D)
+        if cross:
+            p["ln_cross"] = rmsnorm_spec(D)
+            p["cross"] = attn_mod.attn_specs(cfg, cross=True)
     if _has_ffn(cfg, kind):
         p["ln_mlp"] = rmsnorm_spec(D)
         if _is_moe_block(cfg, idx, kind):
@@ -102,28 +105,35 @@ def _stack_specs(tree, n: int):
 
 def model_specs(cfg: ModelConfig) -> dict:
     """Full abstract parameter tree."""
-    check_supported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     wd = cfg.weight_dtype
     specs: Dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "embed"), scale=1.0, dtype=wd),
         "final_norm": rmsnorm_spec(D),
     }
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and not cfg.is_encoder_only:
         specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)
-    group = {f"b{i}": block_specs(cfg, i, kind) for i, kind in enumerate(cfg.pattern)}
+    group = {f"b{i}": block_specs(cfg, i, kind, cross=cfg.is_encoder_decoder)
+             for i, kind in enumerate(cfg.pattern)}
     specs["decoder"] = _stack_specs(group, cfg.num_groups)
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = _stack_specs(block_specs(cfg, 0, ATTN), cfg.num_encoder_layers)
+        specs["enc_norm"] = rmsnorm_spec(D)
+    if cfg.is_encoder_only:
+        specs["mlm_head"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)
     return specs
 
 
 # leaves the model reads in float32 or in their spec dtype, never in the
-# activation dtype: the rmsnorm scales (the SSM's gate_norm too), the MoE
+# activation dtype: the rmsnorm scales (the cross-attention's ln_cross, the
+# encoder's enc_norm and the SSM's gate_norm too), the MoE
 # router (float32 logits) and the SSM's A_log, dt_bias and D_skip (read
 # .float()). Every other weight is cast to the activation dtype where it
 # is used.
-SPEC_DTYPE_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_mlp", "post_ln_mlp",
-                             "final_norm", "q_norm", "k_norm", "ln", "gate_norm",
-                             "router", "A_log", "dt_bias", "D_skip"})
+SPEC_DTYPE_KEYS = frozenset({"ln_attn", "post_ln_attn", "ln_cross", "ln_mlp",
+                             "post_ln_mlp", "final_norm", "enc_norm", "q_norm",
+                             "k_norm", "ln", "gate_norm", "router", "A_log",
+                             "dt_bias", "D_skip"})
 
 
 def cast_weights(cfg: ModelConfig, specs, name: str = "") -> Any:
@@ -186,16 +196,46 @@ def _ffn_apply(cfg, bp, h):
     return h + out
 
 
+def _run_encoder(cfg, params, enc_embeds):
+    """The encoder over [B, enc_S, D] input embeddings: each layer
+    bidirectional self attention (the flash kernel at ``causal=False``)
+    and its FFN, then ``enc_norm``. Returns [B, enc_S, D]."""
+    h = enc_embeds.to(cfg.activation_dtype)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    for l in range(cfg.num_encoder_layers):
+        lp = _layer(params["encoder"], l)
+        a = attn_mod.self_attention(cfg, lp["attn"], rmsnorm(h, lp["ln_attn"], cfg.norm_eps),
+                                    positions=positions, causal=False)
+        if cfg.use_post_norm:
+            a = rmsnorm(a, lp["post_ln_attn"], cfg.norm_eps)
+        h = _ffn_apply(cfg, lp, h + a)
+    return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+
 def _embed_inputs(cfg, params, batch):
-    """Token embedding: [B, S] int tokens -> [B, S, D] activations."""
-    return params["embed"][batch["tokens"].long()].to(cfg.activation_dtype)
+    """(h, enc_out): the token embeddings of ``batch["tokens"]`` [B, S], with
+    a vision stub's ``batch["image_embeds"]`` [B, Ni, D] before them ([B,
+    Ni + S, D] activations), and an encoder-decoder model's encoder output
+    of ``batch["enc_embeds"]`` (else None)."""
+    act = cfg.activation_dtype
+    enc_out = (_run_encoder(cfg, params, batch["enc_embeds"])
+               if cfg.is_encoder_decoder else None)
+    h = params["embed"][batch["tokens"].long()].to(act)
+    if cfg.frontend == "vision_stub":
+        h = torch.cat([batch["image_embeds"].to(act), h], dim=1)
+    return h, enc_out
 
 
 def _logits(cfg, params, h):
     """float32 logits of [B, S, D] activations (the JAX einsum's float32
     accumulation of activation-dtype operands)."""
     act = cfg.activation_dtype
-    w = params["embed"].to(act).T if cfg.tie_embeddings else params["unembed"].to(act)
+    if cfg.is_encoder_only:
+        w = params["mlm_head"].to(act)
+    elif cfg.tie_embeddings:
+        w = params["embed"].to(act).T
+    else:
+        w = params["unembed"].to(act)
     logits = torch.matmul(h.float(), w.float())
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
@@ -212,9 +252,11 @@ def cache_len(T: int) -> int:
     return -(-T // CACHE_PAD) * CACHE_PAD
 
 
-def _cache_entry(cfg: ModelConfig, kind: str, B: int, Tc: int) -> dict:
+def _cache_entry(cfg: ModelConfig, kind: str, B: int, Tc: int, enc_S: int) -> dict:
     """Abstract cache entry of one block (no layer axis): ``Tc`` K/V slots
-    for attention; the float32 SSM state and the conv tails for MAMBA."""
+    for attention, and an encoder-decoder model's cross K/V of its
+    ``enc_S`` encoder positions; the float32 SSM state and the conv tails
+    for MAMBA."""
     act = cfg.activation_dtype
     if kind == MAMBA:
         d_in, H, G, N = ssm_mod.ssm_dims(cfg)
@@ -230,22 +272,28 @@ def _cache_entry(cfg: ModelConfig, kind: str, B: int, Tc: int) -> dict:
             "conv_C": ParamSpec((B, W - 1, G * N), ("batch", None, None), "zeros",
                                 dtype=act),
         }
-    return {name: ParamSpec((B, Tc, cfg.num_kv_heads, cfg.head_dim),
-                            ("batch", "kv_seq", None, None), "zeros", dtype=act)
-            for name in ("k", "v")}
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    e = {name: ParamSpec((B, Tc, KV, hd), ("batch", "kv_seq", None, None), "zeros",
+                         dtype=act) for name in ("k", "v")}
+    if cfg.is_encoder_decoder:
+        for name in ("cross_k", "cross_v"):
+            e[name] = ParamSpec((B, enc_S, KV, hd), ("batch", None, "kv_heads", None),
+                                "zeros", dtype=act)
+    return e
 
 
-def cache_specs(cfg: ModelConfig, B: int, T: int) -> dict:
+def cache_specs(cfg: ModelConfig, B: int, T: int, enc_S: int = 0) -> dict:
     """Abstract cache for B sequences of up to T tokens: ``min(T, W)`` K/V
-    slots for a LOCAL block of window W, ``cache_len(T)`` for a global one,
-    the SSM state and conv tails for a MAMBA block."""
-    check_supported(cfg)
+    slots for a LOCAL block of window W, ``cache_len(T)`` for a global one
+    (and the cross K/V of ``enc_S`` encoder positions for an
+    encoder-decoder model), the SSM state and conv tails for a MAMBA
+    block."""
 
     def slots(kind):
         return (min(T, cfg.window_size) if kind == LOCAL and cfg.window_size
                 else cache_len(T))
 
-    return _stack_specs({f"b{i}": _cache_entry(cfg, kind, B, slots(kind))
+    return _stack_specs({f"b{i}": _cache_entry(cfg, kind, B, slots(kind), enc_S)
                          for i, kind in enumerate(cfg.pattern)}, cfg.num_groups)
 
 
@@ -257,15 +305,18 @@ def _ring_slots(S: int, W: int, device) -> torch.Tensor:
 
 
 def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
-    """Process the prompt ``batch["tokens"]`` [B, S]; return (last-position
-    float32 logits [B, 1, V], cache). A global block's cache has
-    ``max_len`` slots. A LOCAL block of window W attends within its window;
-    when ``W <= S`` its cache is a ring of W slots holding the last W
-    positions (:func:`_ring_slots`), else it has ``min(max_len, W)`` slots.
-    A MAMBA block caches its final SSM state and conv tails."""
-    check_supported(cfg)
-    h = _embed_inputs(cfg, params, batch)
+    """Process the prompt ``batch["tokens"]`` [B, S] (with the model's other
+    inputs, :func:`_embed_inputs`); return (last-position float32 logits
+    [B, 1, V], cache). S counts a vision stub's image positions. A global
+    block's cache has ``max_len`` slots. A LOCAL block of window W attends
+    within its window; when ``W <= S`` its cache is a ring of W slots
+    holding the last W positions (:func:`_ring_slots`), else it has
+    ``min(max_len, W)`` slots. A MAMBA block caches its final SSM state and
+    conv tails. A decoder block of an encoder-decoder model also attends
+    the encoder output and caches its cross K/V."""
+    h, enc_out = _embed_inputs(cfg, params, batch)
     B, S = h.shape[0], h.shape[1]
+    enc_S = 0 if enc_out is None else enc_out.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     blocks, cache = [], {}  # (window, ring slot positions or None) a block
     for i, kind in enumerate(cfg.pattern):
@@ -275,7 +326,7 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
         cache[f"b{i}"] = {
             name: torch.zeros((cfg.num_groups,) + spec.shape, dtype=spec.dtype,
                               device=h.device)
-            for name, spec in _cache_entry(cfg, kind, B, Tc).items()}
+            for name, spec in _cache_entry(cfg, kind, B, Tc, enc_S).items()}
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
         for i, (kind, (W, ring)) in enumerate(zip(cfg.pattern, blocks)):
@@ -299,6 +350,11 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
                     k, v = k[:, ring], v[:, ring]
                 bc["k"][l, :, :k.shape[1]] = k
                 bc["v"][l, :, :v.shape[1]] = v
+                if enc_out is not None:
+                    enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
+                    h = h + attn_mod.cross_attention(
+                        cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
+                    bc["cross_k"][l], bc["cross_v"][l] = enc_kv
             if _has_ffn(cfg, kind):
                 h = _ffn_apply(cfg, bp, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -310,11 +366,12 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
     token's position); the cache is updated in place and returned. A LOCAL
     block whose cache has exactly ``window_size`` slots decodes against it
     as a ring (:func:`~repro_torch.models.attention.decode_ring_attention`);
-    every other attention block against slots ``0 .. pos``; a MAMBA block
-    takes one step of its recurrence (:func:`~repro_torch.models.ssm.
-    ssm_decode`) and writes its new state and conv tails into the cache.
-    Returns (float32 logits [B, 1, V], cache)."""
-    check_supported(cfg)
+    every other attention block against slots ``0 .. pos``, then, in an
+    encoder-decoder model, against the cached cross K/V of every encoder
+    position; a MAMBA block takes one step of its recurrence
+    (:func:`~repro_torch.models.ssm.ssm_decode`) and writes its new state
+    and conv tails into the cache. Returns (float32 logits [B, 1, V],
+    cache)."""
     h = params["embed"][token.long()].to(cfg.activation_dtype)
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
@@ -340,6 +397,10 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
                 if cfg.use_post_norm:
                     y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
                 h = h + y
+                if cfg.is_encoder_decoder:
+                    h = h + attn_mod.cross_attention(
+                        cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps),
+                        (bc["cross_k"][l], bc["cross_v"][l]))
             if _has_ffn(cfg, kind):
                 h = _ffn_apply(cfg, bp, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -5,9 +5,14 @@ query heads), gemma2-9b (alternating sliding-window and global layers,
 softcaps, post-norms, GeGLU, tied embeddings), the paper's gpt-neox-20b
 and opt-30b (gelu MLPs), mixtral-8x7b (MoE on sliding-window layers),
 kimi-k2-1t-a32b (top-8 MoE with a shared expert, bf16 weights),
-mamba2-370m (Mamba2/SSD blocks only) and jamba-1.5-large-398b (Mamba2 and
+mamba2-370m (Mamba2/SSD blocks only), jamba-1.5-large-398b (Mamba2 and
 attention without RoPE, an FFN after every block, MoE on every other one),
-one parameter tree from JAX's ``init_params`` goes to both sides as numpy
+the paper's roberta-large (encoder-only: a causal prefill, as the JAX
+``prefill_fn`` runs it, and the MLM head) and flan-t5-xxl, whisper-base
+(encoder-decoder: the encoder over seeded ``enc_embeds`` of
+:data:`ENC_S` positions, cross-attention, the cross K/V cache) and
+internvl2-1b (seeded ``image_embeds`` before the prompt, GQA 2:1 in the
+smoke config, 7:1 at full width), one parameter tree from JAX's ``init_params`` goes to both sides as numpy
 arrays (``load_jax_params`` on the port's side); leaves that JAX
 initialises to zero (yi's padded ``wo``) get small numpy normals so that
 every path computes something. The JAX model runs on the Auto-axis
@@ -15,14 +20,19 @@ reference mesh (ROADMAP "Open items"); the port on the CPU runs its
 kernels' plain versions.
 
 * float32: prefill logits and every cache leaf (K/V, SSM states, conv
-  tails) within 1e-4 relative, one decode step's logits and updated cache
-  too, and ``ServeEngine.generate`` gives JAX's ``ServeEngine``'s greedy
-  tokens over 8 steps;
+  tails, cross K/V) within 1e-4 relative, one decode step's logits and
+  updated cache too, and ``ServeEngine.generate`` gives JAX's
+  ``ServeEngine``'s greedy tokens over 8 steps (internvl2's: those of a
+  JAX loop of decode steps from position Ni + S, where the port starts;
+  the JAX engine starts at S, over a cached image position);
 * bfloat16 (the configs' default), with MoE routing followed across (see
-  that test) and, for jamba alone, the attention weights conditioned:
+  that test) and, for jamba, flan-t5-xxl and whisper-base, the
+  attention weights conditioned:
   prefill and decode logits within the 0.06 relative bound of
   ``tests/test_system.py``, and prefill->decode consistency below 0.06;
 * ``load_jax_params`` copies every leaf exactly, in its spec dtype;
+* the port's config registry is the JAX package's, and every full-size
+  config's parameter tree is JAX's, leaf for leaf;
 * gemma2's LOCAL blocks: the prompt of S = 24 tokens is longer than the
   smoke window of 16, so prefill places the ring (S - W = 8) and decode
   wraps it; :func:`test_local_decode_matches_jax_every_step` decodes more
@@ -41,6 +51,8 @@ import pytest
 import torch
 from jax.sharding import AxisType
 
+from repro.configs import ALL as JAX_ALL
+from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.launch.inputs import make_rules
 from repro.launch.mesh import set_mesh
@@ -51,7 +63,7 @@ from repro.models import model as jax_model
 from repro.models import moe as jax_moe
 from repro.models.config import ShapeConfig as JaxShapeConfig
 from repro.models.param import init_params as jax_init_params
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ALL, get_config, smoke_config
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
 from repro_torch.models import model, moe
@@ -59,13 +71,15 @@ from repro_torch.models.config import ShapeConfig
 
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3.2-1b", "qwen3-8b", "yi-34b", "gemma2-9b", "gpt-neox-20b", "opt-30b",
-         "mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b"]
+         "mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b",
+         "roberta-large", "flan-t5-xxl", "whisper-base", "internvl2-1b"]
 B, S = 2, 24
+ENC_S = 20  # encoder positions of the encoder-decoder archs' enc_embeds
 F32_RTOL = 1e-4
 BF16_RTOL = 0.06  # tests/test_system.py's bound
 # the archs whose bf16 check runs on conditioned attention weights
 # (:func:`_shared_params`); every other arch runs on the JAX init
-CONDITIONED = ("jamba-1.5-large-398b",)
+CONDITIONED = ("jamba-1.5-large-398b", "flan-t5-xxl", "whisper-base")
 
 
 @pytest.fixture(scope="module")
@@ -81,14 +95,16 @@ def _configs(arch, dtype):
 
 def _shared_params(jcfg, seed=0, condition=False):
     """JAX-initialised parameters as a numpy tree, zero leaves filled. With
-    ``condition``, the attention weights are rescaled from the JAX init's
-    fan-in (the second-to-last dim: the head count for ``wq [D, H, hd]``)
-    to a fan-in over each product's contraction dims (D for wq/wk/wv, H * hd
-    for wo), as ``chip_smoke.py::condition_attention`` does: the JAX init
-    gives attention scores of standard deviation ~85, a nearly one-hot
-    softmax that turns any two bf16 rounding orders into O(1) differences
-    after a few layers (jamba's smoke model: JAX jitted against JAX eager,
-    0.073 apart in bf16)."""
+    ``condition``, the attention weights (the decoder's self and cross
+    attention, the encoder's self attention) are rescaled from the JAX
+    init's fan-in (the second-to-last dim: the head count for ``wq [D, H,
+    hd]``) to a fan-in over each product's contraction dims (D for
+    wq/wk/wv, H * hd for wo), as ``chip_smoke.py::condition_attention``
+    does: the JAX init gives attention scores of standard deviation ~85, a
+    nearly one-hot softmax that turns any two bf16 rounding orders into
+    O(1) differences after a few layers (the smoke models' prefill logits,
+    JAX jitted against JAX eager in bf16: jamba 0.073, flan-t5-xxl 0.056,
+    whisper-base 0.051; conditioned 0.012 and 0.007 for the last two)."""
     rng = np.random.default_rng(seed)
     tree = jax.tree.map(np.asarray, jax_init_params(jax_model.model_specs(jcfg, 1),
                                                     jax.random.key(seed)))
@@ -101,13 +117,39 @@ def _shared_params(jcfg, seed=0, condition=False):
     tree = jax.tree.map(fill, tree)
     if condition:
         H, KV, D = jcfg.padded_heads, jcfg.num_kv_heads, jcfg.d_model
-        for blk in tree["decoder"].values():
-            if "attn" in blk:
-                a = blk["attn"]
-                for name, f in (("wq", (H / D) ** 0.5), ("wk", (KV / D) ** 0.5),
-                                ("wv", (KV / D) ** 0.5), ("wo", H ** -0.5)):
-                    a[name] = (a[name].astype(np.float32) * np.float32(f)).astype(a[name].dtype)
+        blocks = list(tree["decoder"].values()) + ([tree["encoder"]] if "encoder" in tree else [])
+        for a in (blk[k] for blk in blocks for k in ("attn", "cross") if k in blk):
+            for name, f in (("wq", (H / D) ** 0.5), ("wk", (KV / D) ** 0.5),
+                            ("wv", (KV / D) ** 0.5), ("wo", H ** -0.5)):
+                a[name] = (a[name].astype(np.float32) * np.float32(f)).astype(a[name].dtype)
     return tree
+
+
+def _extra(cfg, seed=6):
+    """The arch's inputs beside its tokens, as numpy float32: ``enc_embeds``
+    [B, ENC_S, D] of an encoder-decoder model, ``image_embeds`` [B, Ni, D]
+    of a vision stub; else none."""
+    rng = np.random.default_rng(seed)
+    if cfg.is_encoder_decoder:
+        return {"enc_embeds": rng.standard_normal((B, ENC_S, cfg.d_model), np.float32)}
+    if cfg.frontend == "vision_stub":
+        return {"image_embeds": rng.standard_normal((B, cfg.num_image_embeds, cfg.d_model),
+                                                    np.float32)}
+    return {}
+
+
+def _prefix(cfg) -> int:
+    """Positions before the prompt: a vision stub's image embeddings."""
+    return cfg.num_image_embeds if cfg.frontend == "vision_stub" else 0
+
+
+def _jax_batch(tokens, extra):
+    return {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in extra.items()}}
+
+
+def _batch(tokens, extra):
+    return {"tokens": torch.as_tensor(tokens),
+            **{k: torch.from_numpy(v) for k, v in extra.items()}}
 
 
 def _rel(a, b):
@@ -174,13 +216,13 @@ def _run_both(arch, dtype, mesh, tokens, follow_jax_routing=False, condition=Fal
     params = model.load_jax_params(cfg, np_params, "cpu")
     shape = JaxShapeConfig("t", S, B, "prefill")
     rules = make_rules(jcfg, shape, mesh)
-    nxt = tokens[:, -1:]
+    nxt, extra, pos = tokens[:, -1:], _extra(jcfg), _prefix(jcfg) + S - 1
     with set_mesh(mesh), _jax_routing() as taken:
         jpf = jax.jit(jax_prefill_step(jcfg, shape, mesh, rules))
         jdc = jax.jit(jax_decode_step(jcfg, mesh, rules))
-        jl, jc = jpf(jparams, {"tokens": jnp.asarray(tokens[:, :-1])})
+        jl, jc = jpf(jparams, _jax_batch(tokens[:, :-1], extra))
         jl, jc = jax.tree.map(np.asarray, (jl, jc))
-        jdl, jdc_ = jdc(jparams, jnp.asarray(nxt), jnp.asarray(S - 1, jnp.int32),
+        jdl, jdc_ = jdc(jparams, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32),
                         jax.tree.map(jnp.asarray, jc))
         jdl, jdc_ = jax.tree.map(np.asarray, (jdl, jdc_))
         jax.effects_barrier()
@@ -188,9 +230,9 @@ def _run_both(arch, dtype, mesh, tokens, follow_jax_routing=False, condition=Fal
     dc = build_decode_step(cfg)
     forced = [torch.from_numpy(np.array(t)).long() for t in taken]
     with CHIP_SMOKE.moe_routing(forced if follow_jax_routing else None) as own:
-        pl, pc = pf(params, {"tokens": torch.as_tensor(tokens[:, :-1])})
+        pl, pc = pf(params, _batch(tokens[:, :-1], extra))
         pc_prefill = jax.tree.map(lambda t: t.clone(), pc)
-        pdl, pdc = dc(params, torch.as_tensor(nxt), S - 1, pc)
+        pdl, pdc = dc(params, torch.as_tensor(nxt), pos, pc)
     out = (jl, jc, jdl, jdc_), (pl, pc_prefill, pdl, pdc)
     return out + ((own, forced),) if follow_jax_routing else out
 
@@ -247,23 +289,44 @@ def test_bfloat16_logits_and_prefill_decode_consistency(arch, mesh):
     # plus one decode step of it
     params = model.load_jax_params(
         cfg, _shared_params(jcfg, condition=arch in CONDITIONED), "cpu")
+    extra = _extra(jcfg)
     with CHIP_SMOKE.moe_routing() as full_routing:
         full, _ = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
-            params, {"tokens": torch.as_tensor(tokens)})
+            params, _batch(tokens, extra))
     full_choices = [topi.reshape(B, S, -1) for topi, _ in full_routing]
     forced = ([c[:, :-1].reshape(B * (S - 1), -1) for c in full_choices]
               + [c[:, -1] for c in full_choices])
     with CHIP_SMOKE.moe_routing(forced) as split_routing:
         _, cache = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
-            params, {"tokens": torch.as_tensor(tokens[:, :-1])})
-        dec, _ = build_decode_step(cfg)(params, torch.as_tensor(tokens[:, -1:]), S - 1, cache)
+            params, _batch(tokens[:, :-1], extra))
+        dec, _ = build_decode_step(cfg)(params, torch.as_tensor(tokens[:, -1:]),
+                                        _prefix(cfg) + S - 1, cache)
     _assert_near_ties(split_routing, forced)
     assert np.isfinite(_np(full)).all() and np.isfinite(_np(dec)).all()
     assert _rel(_np(full[:, -1]), _np(dec[:, -1])) < BF16_RTOL
 
 
+def _jax_greedy(jeng, mesh, tokens, n, extra, pos):
+    """JAX's greedy loop of ``jeng``'s jitted prefill and decode steps, its
+    first decode step at position ``pos``."""
+    with set_mesh(mesh):
+        logits, cache = jeng.prefill(jeng.params, _jax_batch(tokens, extra))
+        tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+        outs = []
+        for i in range(n):
+            outs.append(np.asarray(tok)[:, 0])
+            logits, cache = jeng.decode(jeng.params, tok, jnp.asarray(pos + i, jnp.int32),
+                                        cache)
+            tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+    return np.stack(outs, axis=1)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_float32_generate_matches_jax_serve_engine(arch, mesh):
+    """The port's greedy tokens are JAX's ``ServeEngine``'s; a vision
+    stub's are those of JAX's own steps decoding from position Ni + S,
+    after the image and the prompt, where the port starts (the JAX engine
+    starts at S, over a cached image position)."""
     jcfg, cfg = _configs(arch, "float32")
     np_params = _shared_params(jcfg)
     jeng = JaxServeEngine(jcfg, mesh, max_len=S + 8, batch=B)
@@ -271,11 +334,15 @@ def test_float32_generate_matches_jax_serve_engine(arch, mesh):
     eng = ServeEngine(cfg, S + 8, B, device="cpu")
     eng.params = model.load_jax_params(cfg, np_params, "cpu")
     tokens = _tokens(jcfg, seed=5)[:, :16]
-    want = jeng.generate(tokens, 8)
-    got = eng.generate(tokens, 8)
+    extra = _extra(jcfg)
+    if _prefix(jcfg):
+        want = _jax_greedy(jeng, mesh, tokens, 8, extra, _prefix(jcfg) + tokens.shape[1])
+    else:
+        want = jeng.generate(tokens, 8, {k: jnp.asarray(v) for k, v in extra.items()})
+    got = eng.generate(tokens, 8, extra)
     assert got.shape == (B, 8) and got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(eng.generate(tokens, 8), got)
+    np.testing.assert_array_equal(eng.generate(tokens, 8, extra), got)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -312,13 +379,14 @@ def test_param_and_cache_specs_match_jax(arch):
     for (jpath, js), (ppath, ps) in zip(jl, pl):
         assert "/" + "/".join(k.key for k in jpath) == ppath
         assert (js.shape, js.logical, js.init) == (ps.shape, ps.logical, ps.init), ppath
-    jcache = jax_model.cache_specs(jcfg, B, S)
-    pcache = model.cache_specs(cfg, B, S)
+    enc_S = ENC_S if cfg.is_encoder_decoder else 0
+    jcache = jax_model.cache_specs(jcfg, B, S, enc_S)
+    pcache = model.cache_specs(cfg, B, S, enc_S)
     assert [(s.shape, np.dtype(s.dtype).name) for s in jax.tree.leaves(jcache, is_leaf=is_spec)] \
         == [(s.shape, str(s.dtype)[6:]) for _, s in _leaves(pcache)]
     _, cache = build_prefill_step(cfg, ShapeConfig("t", S, B, "prefill"))(
         model.load_jax_params(cfg, _shared_params(jcfg)),
-        {"tokens": torch.as_tensor(_tokens(jcfg))})
+        _batch(_tokens(jcfg), _extra(jcfg)))
     assert [tuple(t.shape) for _, t in _leaves(cache)] == \
         [s.shape for _, s in _leaves(pcache)]
     a = ServeEngine(cfg, S, B, device="cpu", seed=7).params
@@ -338,15 +406,19 @@ def test_param_and_cache_specs_match_jax(arch):
     assert a["embed"].dtype == cfg.activation_dtype
 
 
-def test_unsupported_configs_raise():
-    """Encoders (and with them cross-attention) and the vision frontend
-    still raise; MAMBA blocks and MoE serve since they were ported."""
-    base = smoke_config("llama3.2-1b")
-    for cfg in (base.replace(num_encoder_layers=2),
-                base.replace(family="encoder"),
-                base.replace(frontend="vision_stub")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-            model.model_specs(cfg)
+@pytest.mark.parametrize("arch", sorted(JAX_ALL))
+def test_registry_and_full_size_specs_match_jax(arch):
+    """The port's registry is JAX's, key for key, and each full-size
+    config's parameter tree is JAX's: every leaf's path, shape, logical
+    axes and init (specs only, nothing allocated)."""
+    assert ALL == JAX_ALL
+    is_spec = lambda x: hasattr(x, "logical")
+    jl = jax.tree_util.tree_leaves_with_path(
+        jax_model.model_specs(jax_get_config(arch), 1), is_leaf=is_spec)
+    pl = list(_leaves(model.model_specs(get_config(arch))))
+    assert ["/" + "/".join(k.key for k in path) for path, _ in jl] == [p for p, _ in pl]
+    for (_, js), (path, ps) in zip(jl, pl):
+        assert (js.shape, js.logical, js.init) == (ps.shape, ps.logical, ps.init), path
 
 
 @pytest.mark.parametrize("pos", [0, 5, 31])
