@@ -60,7 +60,17 @@ kernels:
   with 256 image embeddings before the prompt (GQA 14/2), each through
   ``ServeEngine`` with its launches by kernel variant and prefill->decode
   consistency, then their smoke configs card vs CPU; the attention kernels
-  are also held against their plain versions and timed at these shapes.
+  are also held against their plain versions and timed at these shapes;
+* training (phase k): the flash backward kernel
+  (``csrc/flash_attention_bwd.cu``) against its plain version at the
+  training tests' shapes and at roberta-large's and llama3.2-1b's training
+  shapes, two launches bit-equal, and timed beside SDPA's backward; one
+  float32 train step of every registry arch's smoke config card vs CPU; a
+  bf16 train step at full width cut to 2 layers with the kernels against
+  autograd of the plain attention (and failing with the backward zeroed);
+  roberta-large at full width and depth, B 32 x S 2048, through the
+  launcher's supervisor with a checkpoint and an injected crash replayed to
+  the clean state; llama3.2-1b at B 8 x S 1024.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -355,9 +365,10 @@ def reset_counts() -> None:
     """Zero every kernel wrapper's launch count."""
     from repro_torch.kernels import decode_attention, flash_attention, tick
     tick.polca_tick_loop.launches = 0
-    flash_attention.flash_attention.launches = 0
-    decode_attention.decode_attention.launches = 0
-    for fn in (flash_attention.flash_attention, decode_attention.decode_attention):
+    wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_lse,
+                flash_attention.flash_attention_bwd, decode_attention.decode_attention)
+    for fn in wrappers:
+        fn.launches = 0
         for variant in fn.launches_by_variant:
             fn.launches_by_variant[variant] = 0
 
@@ -2313,6 +2324,584 @@ def routed_fleets(dev) -> None:
         + f" in {cmp_s:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# (k) training: the flash backward kernel, and the train step on the card
+# ---------------------------------------------------------------------------
+
+# The backward kernel's shapes: tests/test_torch_train.py's gradient cases in
+# float32 (q_offset = Skv - Sq: the reference's alignment, which leaves the
+# first rows of the last float32 case without a key), then every CUDA-core
+# instance and the tensor-core instance (bf16, hd 64) with causal, window,
+# softcap, q_offset, GQA and cross shapes, and a row without a key.
+BWD_CASES = [
+    # (B, Sq, Skv, H, KV, hd, dtype, causal, window, softcap, q_offset)
+    (2, 24, 24, 4, 2, 16, "float32", True, 0, 0.0, 0),
+    (2, 24, 24, 4, 4, 16, "float32", False, 0, 0.0, 0),
+    (1, 40, 40, 8, 2, 32, "float32", True, 7, 0.0, 0),
+    (2, 24, 24, 4, 2, 16, "float32", True, 0, 20.0, 0),
+    (1, 33, 33, 4, 1, 64, "float32", True, 9, 30.0, 0),
+    (2, 20, 28, 4, 2, 16, "float32", True, 0, 0.0, 8),
+    (2, 12, 28, 4, 2, 16, "float32", False, 0, 0.0, 16),
+    (2, 20, 16, 4, 2, 16, "float32", True, 0, 0.0, -4),
+    (2, 37, 37, 4, 2, 8, "float32", True, 5, 0.0, 0),
+    (1, 100, 77, 4, 2, 96, "float32", False, 0, 0.0, 0),
+    (1, 130, 130, 4, 2, 128, "float32", True, 0, 0.0, 0),
+    (1, 256, 256, 4, 4, 256, "float32", True, 128, 30.0, 0),
+    (2, 37, 53, 4, 2, 16, "bfloat16", False, 0, 0.0, 0),
+    (2, 37, 37, 8, 1, 32, "bfloat16", True, 0, 0.0, 0),
+    (1, 100, 77, 4, 2, 96, "bfloat16", False, 0, 0.0, 0),
+    (1, 200, 200, 16, 2, 128, "bfloat16", True, 0, 30.0, 0),
+    (1, 64, 64, 4, 2, 256, "bfloat16", True, 16, 0.0, 200),
+    (1, 300, 300, 8, 2, 64, "bfloat16", True, 64, 0.0, 0),
+    (1, 64, 64, 4, 2, 64, "bfloat16", True, 0, 0.0, -10),
+    (2, 130, 130, 8, 8, 64, "bfloat16", False, 0, 50.0, 0),
+    (2, 200, 261, 16, 2, 64, "bfloat16", True, 0, 50.0, 61),
+    (2, 77, 150, 4, 4, 64, "bfloat16", False, 0, 0.0, 0),
+]
+# roberta-large's and llama3.2-1b's training shapes (bf16, hd 64)
+TRAIN_ATTN = {"roberta": (32, 2048, 2048, 16, 16, 64, "bfloat16", False, 0, 0.0, 0),
+              "llama": (8, 1024, 1024, 32, 8, 64, "bfloat16", True, 0, 0.0, 0)}
+LSE_TOL = 1e-4  # the row log-sum-exp against the plain version's, absolute
+# the full-width runs: (arch, batch, sequence, steps); roberta-large at the
+# paper's training shape (benchmarks/fig08_09_training.py)
+TRAIN_RUNS = {"roberta-large": (32, 2048, 4), "llama3.2-1b": (8, 1024, 3)}
+TRAIN_FAIL_AT = 3  # roberta's injected fault: before the fourth step run
+GATE_LAYERS = 2  # of the full-width models in the bf16 gate
+GATE_TOL = ATTN_TOL["bfloat16"]
+REPLAY_ATOL = 1e-6  # tests/test_checkpoint.py's crash-replay contract
+# the float32 card-vs-CPU step: float32 parameter storage within this (gap
+# norm over norm, each state leaf); bf16 storage (kimi-k2, jamba) within one
+# bf16 rounding unit, its squared moments within two (tests/_torch_train_ref.py)
+TRAIN_F32_RTOL = 1e-4
+BF16_STORAGE_RTOL = 2.0 ** -7
+# the smoke configs whose card-vs-CPU step runs on conditioned attention
+# (tests/_torch_train_ref.py::CONDITIONED): on the JAX init flan-t5's
+# second moments are 1.7e-4 of a leaf's norm apart between an H100 and the
+# CPU, as they are between the port and JAX
+TRAIN_CONDITIONED = ("jamba-1.5-large-398b", "flan-t5-xxl", "whisper-base")
+
+
+def train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    return {"forward": fa.flash_attention_lse.launches,
+            "backward": fa.flash_attention_bwd.launches,
+            "serving_flash": fa.flash_attention.launches}
+
+
+def compare_grad(got, want, scale, tol: float, label: str) -> float:
+    """:func:`compare_close` for a gradient [B, S, heads, hd]: |got - want|
+    <= tol + tol |want|; in bf16 also <= tol (|want| + ``scale`` + tol x
+    the RMS of its head's gradient over the sequence), ``scale`` the root
+    sum of squares of the products that add up to each entry
+    (:func:`grad_scales`), where the forward holds an output to tol (|want|
+    + its row's RMS). An output is a convex sum of values; a gradient entry
+    sums terms of both signs (a query row's dS sums to zero over its keys),
+    and the bf16 roundings of its terms add in quadrature: an early causal
+    row's dq is far smaller than its terms, and a row that attends one key
+    has a dq of pure rounding noise (the last summand's floor). A dropped
+    tile of 64 of 2048 keys still moves an entry by ~0.18 of its scale. In
+    float32 the first bound (2e-5 against gradients of 0.01-1) holds alone.
+    Returns (the max gap, the number of entries beyond the forward's
+    row-RMS bound, which this bound replaces)."""
+    import torch
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        raise AssertionError(f"{label}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    gap = (g - w).abs()
+    n_bad = int((gap > tol + tol * w.abs()).sum())
+    n_bad2 = n_row = 0
+    if got.dtype == torch.bfloat16:
+        head_rms = w.pow(2).mean(dim=(1, 3), keepdim=True).sqrt()
+        n_bad2 = int((gap > tol * (w.abs() + scale + tol * head_rms)).sum())
+        n_row = int((gap > tol * (w.abs() + w.pow(2).mean(-1, keepdim=True).sqrt())).sum())
+    if n_bad or n_bad2:
+        raise AssertionError(f"{label}: {n_bad} elements beyond {tol}, {n_bad2} beyond {tol} "
+                             f"x (|want| + its terms' scale) (max gap {float(gap.max()):.3e})")
+    return float(gap.max()), n_row
+
+
+def grad_scales(do, q, k, v, o, lse, *, causal, window, softcap, q_offset):
+    """The scales of :func:`compare_grad` for (dq, dk, dv), float32: the
+    root sum of squares of each entry's terms in the plain backward's
+    formulas, sqrt(dS^2 K^2) hd^-1/2, sqrt(dS^2^T Q^2) hd^-1/2 and
+    sqrt(P^2^T dO^2)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    mask = fa.attention_mask(Sq, Skv, causal=causal, window=window, q_offset=q_offset,
+                             device=q.device)
+    c = fa._scores_plain(q, k, softcap)
+    lse_ = lse.reshape(B, KV, G, Sq, 1)
+    p = torch.where(mask & torch.isfinite(lse_), torch.exp(c - lse_), 0.0)
+    dof = do.float().reshape(B, Sq, KV, G, hd)
+    d = (dof * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dof, v.float())
+    ds2 = (p * (dp - d.permute(0, 2, 3, 1)[..., None])).square()
+    if softcap:
+        ds2 = ds2 * (1.0 - (c / softcap) ** 2).square()
+    scale = hd ** -0.5
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds2, k.float().square()).sqrt() * scale
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds2,
+                      q.float().square().reshape(B, Sq, KV, G, hd)).sqrt() * scale
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p.square(), dof.square()).sqrt()
+    return dq.reshape(B, Sq, H, hd), dk, dv
+
+
+def _by_batch(fn, do, q, k, v, o, lse, **kw):
+    """``fn`` (the plain backward, or :func:`grad_scales`) one batch row at
+    a time (its float32 score tensors of the whole batch would not fit at
+    the training shapes)."""
+    import torch
+    parts = [fn(do[i:i + 1], q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1], lse[i:i + 1],
+                **kw) for i in range(q.shape[0])]
+    return [torch.cat([p[j] for p in parts]) for j in range(3)]
+
+
+def check_backward(dev, case, seed: int) -> dict:
+    """One shape: the training forward (its output bit-equal to the serving
+    launch's, its lse within LSE_TOL of the plain version's, +inf on the
+    same rows), then the backward kernel launched twice (bit-equal) against
+    the plain backward on the kernel's own o and lse."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, KV, hd, dt, causal, window, cap, q_off = case
+    rng = np.random.default_rng(seed)
+    q = randn(rng, (B, Sq, H, hd), dt, dev)
+    k = randn(rng, (B, Skv, KV, hd), dt, dev)
+    v = randn(rng, (B, Skv, KV, hd), dt, dev)
+    do = randn(rng, (B, Sq, H, hd), dt, dev)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_off)
+    label = (f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd} {dt} causal={causal} "
+             f"window={window} softcap={cap} q_offset={q_off}")
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    if not torch.equal(o, fa.flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"flash_attention_lse {label}: output differs from the serving launch")
+    _, plain_lse = fa.flash_attention_lse_plain(q[:1], k[:1], v[:1], **kw)
+    empty = torch.isinf(plain_lse)
+    if not torch.equal(torch.isinf(lse[:1]), empty):
+        raise AssertionError(f"flash_attention_lse {label}: rows without a key differ")
+    lse_gap = float((lse[:1] - plain_lse)[~empty].abs().max()) if (~empty).any() else 0.0
+    if not lse_gap <= LSE_TOL:
+        raise AssertionError(f"flash_attention_lse {label}: lse gap {lse_gap:.3e}")
+    got = fa.flash_attention_bwd(do, q, k, v, o, lse, **kw)
+    again = fa.flash_attention_bwd(do, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: two launches differ")
+    want = _by_batch(fa.flash_attention_bwd_plain, do, q, k, v, o, lse, **kw)
+    scales = (_by_batch(grad_scales, do, q, k, v, o, lse, **kw) if dt == "bfloat16"
+              else (None, None, None))
+    res = {name: compare_grad(g, w, sc, ATTN_TOL[dt], f"flash_attention_bwd {label} {name}")
+           for name, g, w, sc in zip(("dq", "dk", "dv"), got, want, scales)}
+    gaps = {name: r[0] for name, r in res.items()}
+    n_row = sum(r[1] for r in res.values())
+    row_note = (f"; {n_row} of {q.numel() + 2 * k.numel()} entries beyond "
+                f"the forward's row-RMS bound" if n_row else "")
+    say(f"kernel flash_attention_bwd {label} ({fa.bwd_variant(q.dtype, hd)}): max abs gap "
+        f"dq {gaps['dq']:.3e} dk {gaps['dk']:.3e} dv {gaps['dv']:.3e}{row_note}; two "
+        f"launches bit-equal; forward lse gap {lse_gap:.3e} ({int(empty.sum())} rows without "
+        f"a key, +inf in both), output bit-equal to the serving launch")
+    return {"max_abs_err": max(gaps.values()), "lse_err": lse_gap, "row_bound_exceeded": n_row}
+
+
+def check_backward_cases(dev) -> dict:
+    """The backward kernel against its plain version at :data:`BWD_CASES`
+    and the training shapes; misaligned bf16 hd-64 views raise before any
+    launch. Returns the errors at the training shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    for i, case in enumerate(BWD_CASES):
+        check_backward(dev, case, 300 + i)
+    out = {name: check_backward(dev, case, 400 + i)
+           for i, (name, case) in enumerate(TRAIN_ATTN.items())}
+    rows = torch.zeros((1, 64, 4, 68), dtype=torch.bfloat16, device=dev)
+    view = rows[..., :64]
+    lse = torch.zeros((1, 4, 64), dtype=torch.float32, device=dev)
+    before = fa.flash_attention_bwd.launches
+    try:
+        fa.flash_attention_bwd(view, view, view, view, view, lse)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention_bwd took a misaligned hd-64 bf16 view")
+    if fa.flash_attention_bwd.launches != before:
+        raise AssertionError("flash_attention_bwd launched on a misaligned view")
+    say("kernel flash_attention_bwd: a misaligned bf16 hd-64 view raises ValueError, no launch")
+    return out
+
+
+def time_backward(dev, name: str, calls: int = 5) -> dict:
+    """The backward kernel at a training shape: device and call time, the
+    plain version's, scaled_dot_product_attention's backward on the same
+    inputs (the library, timed here and never called by the port), the
+    training forward's time, and the bound: 10 B H hd flops a attended
+    (query, key) pair (S = Q K^T again, dP, dV, dK, dQ) at the bf16 peak,
+    or q, k, v, o, dO and lse read once and dq, dk, dv written once at the
+    HBM rate."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, H, KV, hd, dt, causal, _, _, _ = TRAIN_ATTN[name]
+    rng = np.random.default_rng(7)
+    q = randn(rng, (B, Sq, H, hd), dt, dev)
+    k = randn(rng, (B, Skv, KV, hd), dt, dev)
+    v = randn(rng, (B, Skv, KV, hd), dt, dev)
+    do = randn(rng, (B, Sq, H, hd), dt, dev)
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    kernel = lambda: fa.flash_attention_bwd(do, q, k, v, o, lse, causal=causal)  # noqa: E731
+    row = {"ms": device_ms([kernel], calls=calls), "call_ms": cuda_ms(kernel, reps=calls),
+           "forward_ms": device_ms([lambda: fa.flash_attention_lse(q, k, v, causal=causal)],
+                                   calls=calls)}
+    plain = lambda: fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal)  # noqa: E731
+    plain()
+    row["plain_ms"] = cuda_ms(plain, reps=1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    g = do.transpose(1, 2)
+    library = lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True)  # noqa: E731
+    library()
+    row["library_ms"] = cuda_ms(library, reps=calls)
+    del out
+    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
+    flops = 10 * B * H * hd * pairs
+    nbytes = 2 * (3 * B * Sq * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * Sq \
+        + 2 * (B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    say(f"kernel flash_attention_bwd at {name}'s training shape B={B} S={Sq} H={H} KV={KV} "
+        f"hd={hd} {dt} {'causal' if causal else 'bidirectional'} "
+        f"({fa.bwd_variant(q.dtype, hd)}): device {row['ms']:.4f} ms, call "
+        f"{row['call_ms']:.4f} ms (plain version {row['plain_ms']:.3f} ms; "
+        f"scaled_dot_product_attention's backward {row['library_ms']:.4f} ms; the training "
+        f"forward {row['forward_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+    return row
+
+
+def _attn_layers(cfg) -> int:
+    """Attention calls of one forward: self attention in every non-Mamba
+    block, cross attention beside it in an encoder-decoder model, and the
+    encoder's layers."""
+    from repro_torch.models.config import MAMBA
+    n = sum(kind != MAMBA for kind in cfg.pattern) * cfg.num_groups
+    return n * (2 if cfg.is_encoder_decoder else 1) + cfg.num_encoder_layers
+
+
+def _state_gaps(got, want):
+    """(worst gap norm over norm, its leaf, worst max-entry gap over the
+    leaf's largest entry, its leaf) over two state trees."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [p for k in sorted(tree) for p in paths(tree[k], f"{prefix}/{k}" if prefix else k)]
+        return [prefix]
+
+    worst, worst_entry = (0.0, ""), (0.0, "")
+    for path, g, w in zip(paths(want), tree_leaves(got), tree_leaves(want), strict=True):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        d = g - w
+        r = float(d.norm() / max(float(w.norm()), 1e-30))
+        e = float(d.abs().max() / max(float(w.abs().max()), 1e-30))
+        worst = max(worst, (r, path))
+        worst_entry = max(worst_entry, (e, path))
+    return worst, worst_entry
+
+
+def smoke_train_steps(dev) -> None:
+    """One float32 train step of every registry arch's smoke config on the
+    card against the same step on the CPU (the kernels' plain versions):
+    the loss, the grad norm and every state leaf, with the flash launches
+    (the training forward twice an attention call under full remat, the
+    backward once). kimi-k2 and jamba store their parameters in bf16; they
+    run again with float32 storage, which shows where their gap starts.
+    The archs of :data:`TRAIN_CONDITIONED` run on conditioned attention."""
+    import torch
+    from repro_torch.configs import ALL, smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import init_state
+    from repro_torch.optim import make_optimizer
+
+    def to(tree, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in tree.items()}
+
+    for arch in sorted(ALL):
+        base = smoke_config(arch).replace(dtype=torch.float32)
+        storages = [None] + (["float32"] if base.param_dtype == torch.bfloat16 else [])
+        for storage in storages:
+            cfg = base if storage is None else base.replace(param_dtype=torch.float32)
+            opt = make_optimizer(cfg.optimizer)
+            cpu = init_state(cfg, opt, "cpu", seed=0)
+            if arch in TRAIN_CONDITIONED:
+                condition_attention(cfg, cpu["params"])
+            batch = SyntheticTokenPipeline(cfg, DataConfig(2, 32)).batch_at(0)
+            step = build_train_step(cfg, opt)
+            reset_counts()
+            card, m_card = step(to(cpu, dev), device_put_batch(batch, dev))
+            torch.cuda.synchronize()
+            n = train_counts()
+            want_n = {"forward": 2 * _attn_layers(cfg), "backward": _attn_layers(cfg),
+                      "serving_flash": 0}
+            if n != want_n:
+                raise AssertionError(f"(k) {cfg.name} train step launched {n}, want {want_n}")
+            host, m_cpu = step(cpu, batch)
+            loss, loss_cpu = float(m_card["loss"]), float(m_cpu["loss"])
+            (r, leaf), (e, eleaf) = _state_gaps(card, host)
+            bf16 = cfg.param_dtype == torch.bfloat16
+            if not abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu):
+                raise AssertionError(f"(k) {cfg.name}: loss {loss} on the card, {loss_cpu} on the CPU")
+            bound = 2 * BF16_STORAGE_RTOL if bf16 else TRAIN_F32_RTOL
+            if not r < bound:
+                raise AssertionError(f"(k) {cfg.name}: state leaf {leaf} {r:.3e} apart (bound {bound})")
+            cond = ", conditioned attention" if arch in TRAIN_CONDITIONED else ""
+            say(f"(k) train step {cfg.name} ({opt.name}, {'bf16' if bf16 else 'float32'} "
+                f"parameters{cond}) float32 card vs CPU: loss {loss:.6f} / {loss_cpu:.6f}, grad norm "
+                f"{float(m_card['grad_norm']):.5f} / {float(m_cpu['grad_norm']):.5f}; worst "
+                f"state leaf {leaf} {r:.2e} (gap norm over norm, bound {bound:g}), largest "
+                f"entry gap {e:.2e} of its leaf's largest entry ({eleaf}); flash launches "
+                f"{n['forward']} forward, {n['backward']} backward")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention as autograd of the plain version (on the card)
+    instead of the Function whose backward is the kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    real = attention.ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+        return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        softcap=softcap, q_offset=q_offset)
+
+    attention.ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        attention.ops.flash_attention = real
+
+
+@contextlib.contextmanager
+def zeroed_backward():
+    """The backward kernel launched as always, the dq, dk and dv it returns
+    to autograd replaced by zeros: the negative control of the bf16 gate."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.FlashAttention.backward
+
+    def zeroed(ctx, do):
+        grads = real(ctx, do)
+        return tuple(torch.zeros_like(g) for g in grads[:3]) + tuple(grads[3:])
+
+    fa.FlashAttention.backward = staticmethod(zeroed)
+    try:
+        yield
+    finally:
+        fa.FlashAttention.backward = staticmethod(real)
+
+
+def bf16_gate(dev, arch: str, S: int) -> dict:
+    """One bf16 AdamW step of a full-width model cut to GATE_LAYERS layers
+    (conditioned attention, B 2), with the attention kernels against the
+    same step with autograd of the plain attention: every first-moment leaf
+    (0.1 x the clipped gradient) within GATE_TOL (gap norm over norm). With
+    the backward kernel's outputs zeroed the gate must fail."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import init_state
+    from repro_torch.optim import make_optimizer
+    cfg = get_config(arch).replace(num_layers=GATE_LAYERS)
+    opt = make_optimizer(cfg.optimizer)
+    state = init_state(cfg, opt, dev, seed=0)
+    condition_attention(cfg, state["params"])
+    batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(2, S)).batch_at(0), dev)
+    step = build_train_step(cfg, opt)
+    reset_counts()
+    kern, km = step(state, batch)
+    n = train_counts()
+    with plain_attention():
+        plain, pm = step(state, batch)
+    with zeroed_backward():
+        zero, zm = step(state, batch)
+    (r, leaf), (e, eleaf) = _state_gaps(kern["opt"]["mu"], plain["opt"]["mu"])
+    attn = _state_gaps(kern["opt"]["mu"]["decoder"]["b0"]["attn"],
+                       plain["opt"]["mu"]["decoder"]["b0"]["attn"])[0]
+    (rz, zleaf), _ = _state_gaps(zero["opt"]["mu"], plain["opt"]["mu"])
+    if not r < GATE_TOL:
+        raise AssertionError(f"(k) bf16 gate {arch}: mu/{leaf} {r:.3e} apart")
+    if not rz >= GATE_TOL:
+        raise AssertionError(f"(k) bf16 gate {arch}: zeroed dq/dk/dv pass ({rz:.3e})")
+    say(f"(k) bf16 train step {arch} (full width, {GATE_LAYERS} of "
+        f"{get_config(arch).num_layers} layers, B 2 x S {S}, conditioned attention) kernels vs "
+        f"autograd of the plain attention: loss {float(km['loss']):.6f} / "
+        f"{float(pm['loss']):.6f}, grad norm {float(km['grad_norm']):.6f} / "
+        f"{float(pm['grad_norm']):.6f}; first-moment leaves, gap norm over norm: worst "
+        f"mu/{leaf} {r:.3e}, worst attention leaf {attn[0]:.3e} ({attn[1]}) (bound "
+        f"{GATE_TOL}); largest entry gap {e:.3e} (mu/{eleaf}); with dq, dk, dv zeroed "
+        f"mu/{zleaf} {rz:.3e} (fails the bound, as it must); flash {n['forward']} forward, "
+        f"{n['backward']} backward")
+    return {"layers": GATE_LAYERS, "batch": 2, "seq": S, "worst_leaf": r,
+            "worst_attention_leaf": attn[0], "worst_entry": e, "zeroed_backward_worst_leaf": rz}
+
+
+def step_split(cfg, opt, state, batch) -> dict:
+    """One train step's seconds in its three parts, each ended by a
+    synchronize: the loss (forward), its gradient (backward, which
+    recomputes each layer's forward under full remat) and the optimizer
+    update."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(state["params"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = model.loss_fn(cfg, tree_unflatten(state["params"], leaves), batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.update(tree_unflatten(state["params"], list(grads)), state["opt"], state["params"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "optimizer_s": t3 - t2}
+
+
+def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
+    """The training main path at full width and depth through the
+    launcher's ``run`` (its supervisor, pipeline and checkpoints), random
+    weights from seed 0. roberta-large: a clean run, then the same run with
+    a fault injected before its fourth step run, restored from the step-2
+    checkpoint and replayed to the clean run's state within REPLAY_ATOL;
+    then one step split into forward, backward and optimizer. llama3.2-1b:
+    the same steps through ``build_train_step`` alone (its train state is
+    15 GB a checkpoint)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_leaves
+    B, S, steps = TRAIN_RUNS[arch]
+    cfg = get_config(arch)
+    args = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--steps", str(steps)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if arch == "roberta-large":
+        clean_dir = os.path.join(ckpt_root, "clean")
+        state, sup = train.run(args + ["--ckpt-dir", clean_dir, "--ckpt-interval", str(steps)])
+        history = sup.history
+        shutil.rmtree(clean_dir)
+    else:
+        opt = make_optimizer(cfg.optimizer)
+        state = train.init_state(cfg, opt, dev, seed=0)
+        pipeline = SyntheticTokenPipeline(cfg, DataConfig(B, S))
+        step = build_train_step(cfg, opt)
+        history = []
+        for i in range(steps):
+            batch = device_put_batch(pipeline.batch_at(i), dev)
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            history.append({"step": i, "dt": time.perf_counter() - t1, **m})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = train_counts()
+    per_layer = _attn_layers(cfg)
+    if n != {"forward": 2 * per_layer * steps, "backward": per_layer * steps, "serving_flash": 0}:
+        raise AssertionError(f"(k) {arch}: {steps} steps launched {n}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(k) {arch}: non-finite loss {losses}")
+    step_s = sorted(h["dt"] for h in history[1:])[len(history[1:]) // 2]
+    out = {"batch": B, "seq": S, "steps": steps, "layers": cfg.num_layers,
+           "params": sum(p.numel() for p in tree_leaves(state["params"])),
+           "step_s": step_s, "first_step_s": history[0]["dt"], "run_s": run_s,
+           "tokens_per_s": B * S / step_s, "peak_gb": peak_gb, "losses": losses,
+           "launches_per_step": per_layer, "forward_launches_per_step": 2 * per_layer,
+           "launches": n["backward"], "forward_launches": n["forward"]}
+    extra = ""
+    if arch == "roberta-large":
+        reset_counts()
+        faulty_dir = os.path.join(ckpt_root, "faulty")
+        faulty, fsup = train.run(args + ["--ckpt-dir", faulty_dir, "--ckpt-interval", "2",
+                                         "--fail-at", str(TRAIN_FAIL_AT)])
+        shutil.rmtree(faulty_dir)
+        torch.cuda.synchronize()
+        gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(tree_leaves(state), tree_leaves(faulty)))
+        replayed = [h["step"] for h in fsup.history]
+        if not (fsup.n_restarts == 1 and gap <= REPLAY_ATOL):
+            raise AssertionError(f"(k) {arch} crash replay: {fsup.n_restarts} restarts, "
+                                 f"state gap {gap:.3e}")
+        clean_loss = {h["step"]: h["loss"] for h in history}
+        same_loss = all(h["loss"] == clean_loss[h["step"]] for h in fsup.history)
+        out.update(replay_state_gap=gap, replayed_steps=replayed, restarts=fsup.n_restarts,
+                   replay_losses_bit_equal=same_loss)
+        del faulty
+        opt = make_optimizer(cfg.optimizer)
+        batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(B, S)).batch_at(0), dev)
+        out["split"] = step_split(cfg, opt, state, batch)
+        sp = out["split"]
+        extra = (f"; crash before step run {TRAIN_FAIL_AT}: restored the step-2 checkpoint, "
+                 f"step runs {replayed}, final state within {gap:.3e} of the clean run's "
+                 f"(atol {REPLAY_ATOL}), every step run's loss "
+                 f"{'equal to' if same_loss else 'NOT bit-equal to'} the clean run's; one step split: forward {sp['forward_s']:.4f} s, backward "
+                 f"{sp['backward_s']:.4f} s, optimizer {sp['optimizer_s']:.4f} s")
+    say(f"(k) training {arch} full width ({cfg.num_layers} layers, {out['params'] / 1e6:.1f}M "
+        f"params, {cfg.optimizer}, B {B} x S {S}, {steps} steps"
+        f"{' under TrainSupervisor' if arch == 'roberta-large' else ''}): median "
+        f"{step_s:.4f} s/step (first {history[0]['dt']:.3f} s), {B * S / step_s:.0f} tokens/s, "
+        f"peak {peak_gb:.2f} GB, run {run_s:.2f} s; loss "
+        f"{' -> '.join(f'{x:.5f}' for x in losses)}; flash {per_layer} backward and "
+        f"{2 * per_layer} tensor-core forward launches a step{extra}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def training(dev) -> dict:
+    """Phase (k). Returns the kernels-line row of the backward kernel."""
+    import tempfile
+    t0 = time.perf_counter()
+    errs = check_backward_cases(dev)
+    timing = {name: time_backward(dev, name) for name in TRAIN_ATTN}
+    smoke_train_steps(dev)
+    gate = {"roberta-large": bf16_gate(dev, "roberta-large", 2048),
+            "llama3.2-1b": bf16_gate(dev, "llama3.2-1b", 1024)}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as ckpt:
+        trained = {arch: train_full_width(dev, arch, ckpt) for arch in TRAIN_RUNS}
+    say(f"(k) training: phase total {time.perf_counter() - t0:.2f} s")
+    r = timing["roberta"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:64",
+            "launches": trained["roberta-large"]["launches"],
+            "max_abs_err": errs["roberta"]["max_abs_err"],
+            **{k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "forward_ms")},
+            "llama": {**timing["llama"], "max_abs_err": errs["llama"]["max_abs_err"]},
+            "trained": trained, "bf16_train_step_gate": gate}
+
+
 def main() -> int:
     global CARD
     import numpy as np
@@ -2552,6 +3141,10 @@ def main() -> int:
     # shapes of phases (h), (i) and (j)
     attn = time_attention(dev)
 
+    # 8. (k) training: the backward kernel, the train step of every arch card
+    # vs CPU, the bf16 gate, roberta-large and llama3.2-1b at full width
+    train_row = training(dev)
+
     kernels = [{
         "name": "polca_tick",
         "route": "cuda",
@@ -2578,6 +3171,7 @@ def main() -> int:
                                           "by_variant": v["by_variant"][row["name"].split("_")[0]]}
                                    for arch, v in served.items()},
                         **{k: v for k, v in row.items() if isinstance(v, dict)}})
+    kernels.append(train_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

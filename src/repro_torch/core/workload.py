@@ -101,3 +101,35 @@ def request_timing(cfg: ModelConfig, prompt: int, batch: int,
     pre, tok = characterize(cfg, prompt, batch, server)
     return RequestTiming(pre.t_seconds, tok.t_seconds, pre, tok)
 
+
+# ---------------------------------------------------------------------------
+# Training phases (paper §2.4): compute burst / communication trough
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainProfile:
+    """One training iteration as (compute phase, sync trough) — the paper's
+    power-swing structure. ``trough_util``: GPU compute utilization during the
+    gradient-sync bubble (RoBERTa ~high, Flan-T5 ~idle; Fig. 8)."""
+    t_iter: float
+    compute_point: PhasePoint
+    trough_frac: float  # fraction of the iteration spent in the trough
+    trough_util: float
+
+    def phases(self):
+        return [(self.t_iter * (1 - self.trough_frac), self.compute_point),
+                (self.t_iter * self.trough_frac, None)]
+
+
+def train_profile(cfg: ModelConfig, batch: int, seq: int, server: ServerPower,
+                  trough_frac: float = 0.15, trough_util: float = 0.2) -> TrainProfile:
+    shape = ShapeConfig("wl_train", seq, batch, "train")
+    enc_S, dec_S = 0, seq
+    if cfg.is_encoder_decoder:
+        enc_S = min(int(seq * cfg.encoder_seq_frac), cfg.max_encoder_len or seq)
+        dec_S = seq - enc_S
+    c = analytic.step_cost(cfg, shape, enc_S, dec_S)
+    pt = _phase_point(c.flops, c.hbm_bytes + c.attn_score_bytes, server)
+    return TrainProfile(t_iter=pt.t_seconds / (1 - trough_frac),
+                        compute_point=pt, trough_frac=trough_frac,
+                        trough_util=trough_util)

@@ -13,7 +13,9 @@
 // as the Pallas kernel rounds them. Masked scores are the finite sentinel
 // NEG_INF = -0.7 * FLT_MAX and add exactly zero; a row with no key left
 // (l == 0) gives 0, as the Pallas kernel gives when it skips every block of
-// such a row, never NaN.
+// such a row, never NaN. The training launch also writes each row's float32
+// log-sum-exp m + log(l) of its scaled, softcapped, masked scores (+inf for
+// a row with no key), which the backward (flash_attention_bwd.cu) reads.
 //
 // Bound: operations for grouped-query heads. At the serving shapes (S =
 // 1024, hd = 64, G = 4) a block reads each KV tile once for all its query
@@ -109,6 +111,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] row log-sum-exp (the train launch), or null
   long long q_sb, q_ss, q_sh;  // strides in elements; head_dim is contiguous
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -274,7 +277,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
     const int qi = q0 + r % a.BQ;
     if (r >= rows || qi >= a.Sq) continue;
     const float denom = l[rr] == 0.f ? 1.f : l[rr];
-    T* orow = o + b * a.o_sb + qi * a.o_ss + (long long)(kvh * a.G + r / a.BQ) * a.o_sh;
+    const int h = kvh * a.G + r / a.BQ;
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((long long)b * a.KV * a.G + h) * a.Sq + qi] =
+          l[rr] == 0.f ? __int_as_float(0x7f800000) : m[rr] + logf(l[rr]);
+    T* orow = o + b * a.o_sb + qi * a.o_ss + (long long)h * a.o_sh;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = lane + 32 * c;
@@ -373,6 +380,7 @@ struct Cfg {
 
 struct TcArgs {
   void* o;
+  float* lse;  // [B, H, Sq] row log-sum-exp (the train launch), or null
   long long o_sb, o_ss, o_sh;  // strides in elements; head_dim is contiguous
   int Sq, Skv, G, n_qtiles;
   int causal, window, q_offset;
@@ -873,6 +881,9 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     const float inv = 1.f / (lr == 0.f ? 1.f : lr);
     const int qi = q0 + r + 8 * hr;
     if (qi >= a.Sq) continue;
+    if (a.lse != nullptr && lane % 4 == 0)
+      a.lse[(static_cast<long long>(b) * gridDim.y + h) * a.Sq + qi] =
+          lr == 0.f ? __int_as_float(0x7f800000) : m[hr] + logf(lr);
     __nv_bfloat16* orow = out + b * a.o_sb + qi * a.o_ss + h * a.o_sh + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -903,13 +914,15 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 // Launch the CUDA-core kernel on `stream` (PyTorch's current stream) of CUDA
 // device `device`. dtype 0 is float32, 1 is bfloat16 (q, k, v and o share
 // it; bf16 at hd 64, 96, 128 and 256 is the tensor-core kernel's, and
-// refused here).
+// refused here). A non-null `lse` [B, H, Sq] float32 also receives each
+// row's log-sum-exp m + log(l) (+inf for a row with no key): the training
+// forward, whose backward is flash_attention_bwd.cu; serving passes null.
 // Strides are in elements and the head dimension is contiguous. Returns
 // cudaGetLastError() after the launch (0 on success); the kernel runs
 // asynchronously and a fault during the run shows at the next
 // synchronization.
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* o,
+    int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int B, int Sq, int Skv, int H, int KV, int hd,
@@ -919,7 +932,7 @@ extern "C" int flash_attention_launch(
   if (err != cudaSuccess) return (int)err;
   if (KV < 1 || H % KV != 0 || B * KV > 65535) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  FlashArgs a{q,    k,    v,    o,    q_sb, q_ss,   q_sh,     k_sb,   k_ss,   k_sh,
+  FlashArgs a{q,    k,    v,    o,    lse,  q_sb, q_ss,   q_sh,     k_sb,   k_ss,   k_sh,
               v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,   Sq,       Skv,    KV,     H / KV,
               0,    causal, window, q_offset, scale, softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -931,10 +944,12 @@ extern "C" int flash_attention_launch(
 // Launch the tensor-core kernel (bf16, hd 64, 96, 128 or 256) on `stream` of
 // CUDA device `device`. Strides are in elements, the head dimension is
 // contiguous; the base addresses and every other stride must be multiples of
-// 16 bytes (TMA). Returns 0 on success, cudaGetLastError() after a refused
+// 16 bytes (TMA). A non-null `lse` receives the rows' log-sum-exp, as above.
+// Returns 0 on success, cudaGetLastError() after a refused
 // launch, or minus the driver's CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* o, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, float* lse, long long q_sb,
+    long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
     int Sq, int Skv, int H, int KV, int hd, int causal, int window, int q_offset, float scale,
@@ -958,7 +973,7 @@ extern "C" int flash_attention_tc_launch(
   if (r == 0)
     r = hopper::encode_map(&tv, bf16, 2, v, B, Skv, KV, hd, v_sb, v_ss, v_sh, 64, bn, sw);
   if (r != 0) return -r;
-  const tc::TcArgs a{o,      o_sb,   o_ss,   o_sh,     Sq,    Skv,    H / KV,
+  const tc::TcArgs a{o,      lse,    o_sb,   o_ss,   o_sh,     Sq,    Skv,    H / KV,
                      (Sq + tc::kBM - 1) / tc::kBM, causal, window, q_offset, scale, softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

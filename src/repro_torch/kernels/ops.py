@@ -7,6 +7,8 @@ PyTorch version. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tick as _tick
@@ -16,7 +18,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
     """Prefill attention, q: [B,Sq,H,hd]; k/v: [B,Skv,KV,hd] -> [B,Sq,H,hd]:
     ``csrc/flash_attention.cu`` on CUDA tensors, :func:`~repro_torch.kernels.
     flash_attention.flash_attention_plain` on CPU tensors. ``q_offset`` is
-    the absolute position of q[:, 0]."""
+    the absolute position of q[:, 0]. When grad is enabled and q, k or v
+    requires it (training), the call goes through :class:`~repro_torch.
+    kernels.flash_attention.FlashAttention`, whose backward is
+    ``csrc/flash_attention_bwd.cu`` (the plain gradient on CPU tensors)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
     fn = _fa.flash_attention_plain if q.device.type == "cpu" else _fa.flash_attention
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)

@@ -1,12 +1,65 @@
-"""Prefill and decode steps (PyTorch port of the serving half of
+"""Train, prefill and decode steps (PyTorch port of
 ``repro.launch.steps``). One card, so no shardings: each ``build_*``
-function returns a plain callable."""
+function returns a plain callable, and the abstract state is shapes and
+dtypes on the ``meta`` device."""
 
 from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
 
 from repro_torch.launch import inputs as inputs_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.param import ParamSpec, tree_map_specs
+from repro_torch.optim import Optimizer
+from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+
+
+def model_param_specs(cfg: ModelConfig) -> Any:
+    """The parameter specs a step reads (the reference sizes the MoE slots
+    by its mesh; one device holds every expert)."""
+    return model_mod.model_specs(cfg)
+
+
+def abstract_state(cfg: ModelConfig, opt: Optional[Optimizer]) -> dict:
+    """The train (``opt`` given) or serve state as empty tensors of each
+    leaf's shape and dtype on the ``meta`` device: ``{"params": ...}`` and,
+    for training, ``"opt"`` (allocates nothing)."""
+    pspecs = model_param_specs(cfg)
+    trees = {"params": pspecs}
+    if opt is not None:
+        trees["opt"] = opt.init_specs(pspecs)
+
+    def meta(s: ParamSpec):
+        return torch.empty(s.shape, dtype=s.dtype, device="meta")
+
+    return {k: tree_map_specs(meta, v) for k, v in trees.items()}
+
+
+def build_train_step(cfg: ModelConfig, opt: Optimizer):
+    """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: the
+    loss and its gradient with respect to every parameter
+    (:func:`~repro_torch.models.model.loss_fn` under autograd), then
+    ``opt.update``. ``state`` is ``{"params", "opt"}``; the new state is a
+    new tree, the old one is left as it was. A parameter the loss does not
+    reach gets a zero gradient, as under ``jax.grad``. The metrics are 0-d
+    tensors on the state's device (reading them waits for the step)."""
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = model_mod.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+        new_params, new_opt, gnorm = opt.update(tree_unflatten(params, grads), state["opt"],
+                                                params)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss.detach(),
+                                                        "grad_norm": gnorm}
+
+    return train_step
 
 
 def decoder_slots(cfg: ModelConfig, seq_len: int) -> int:
@@ -34,3 +87,15 @@ def build_decode_step(cfg: ModelConfig):
         return model_mod.decode_fn(cfg, params, token, pos, cache)
 
     return decode_step
+
+
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig):
+    """The step a shape cell runs: (train_step, its optimizer) for train
+    shapes, (prefill step, None) for prefill, (one-token decode step,
+    None) for decode."""
+    if shape.kind == "train":
+        opt = Optimizer(cfg.optimizer)
+        return build_train_step(cfg, opt), opt
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape), None
+    return build_decode_step(cfg), None

@@ -1,5 +1,5 @@
-"""The model: parameter specs, prefill and decode (PyTorch port of the
-serving half of ``repro.models.model``).
+"""The model: parameter specs, the training loss, prefill and decode
+(PyTorch port of ``repro.models.model``).
 
 Plain functions over a parameter dict, as in the JAX package. The tree has
 the JAX layout, with each block's parameters stacked over ``num_groups`` on
@@ -34,15 +34,23 @@ takes its logits from ``mlm_head``; its prefill is causal, as the JAX
 model's ``prefill_fn`` is. A vision-stub model (internvl2) prepends
 ``batch["image_embeds"]`` [B, Ni, D] to the token embeddings, so the
 prompt's positions are ``0 .. Ni + S - 1``.
+
+Training (:func:`loss_fn`) runs the whole sequence through the stack at
+once: causal for decoders, bidirectional for an encoder-only model, each
+layer's body recomputed in the backward pass per ``cfg.remat_policy``
+(:func:`_remat`), with the flash kernel's gradient kernel
+(``ops.flash_attention`` under grad) as every attention's backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from functools import partial
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -152,11 +160,11 @@ def cast_weights(cfg: ModelConfig, specs, name: str = "") -> Any:
     return dataclasses.replace(specs, dtype=cfg.activation_dtype)
 
 
-def load_jax_params(cfg: ModelConfig, tree, device="cpu") -> dict:
-    """The port's parameters from the JAX package's parameter pytree, given
-    as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``;
-    layer axis stacked over ``num_groups``): the same tree and values, as
-    torch tensors of each spec's dtype on ``device``."""
+def _load_tree(specs, tree, device, root: str) -> dict:
+    """``tree`` (nested dicts of numpy arrays) checked against the
+    ParamSpec tree ``specs`` (keys and shapes) and carried to torch tensors
+    of each spec's dtype on ``device`` (through float32, exact for the
+    values a parameter, a moment or a step count holds)."""
     def load(spec, x, path):
         if isinstance(spec, ParamSpec):
             x = np.asarray(x)
@@ -166,10 +174,27 @@ def load_jax_params(cfg: ModelConfig, tree, device="cpu") -> dict:
                                 dtype=spec.dtype)
         if not isinstance(x, dict) or set(x) != set(spec):
             got = sorted(x) if isinstance(x, dict) else type(x).__name__
-            raise ValueError(f"{path or 'params'}: keys {got}, want {sorted(spec)}")
+            raise ValueError(f"{path or root}: keys {got}, want {sorted(spec)}")
         return {k: load(spec[k], x[k], f"{path}/{k}") for k in spec}
 
-    return load(model_specs(cfg), tree, "")
+    return load(specs, tree, "")
+
+
+def load_jax_params(cfg: ModelConfig, tree, device="cpu") -> dict:
+    """The port's parameters from the JAX package's parameter pytree, given
+    as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``;
+    layer axis stacked over ``num_groups``): the same tree and values, as
+    torch tensors of each spec's dtype on ``device``."""
+    return _load_tree(model_specs(cfg), tree, device, "params")
+
+
+def load_jax_opt_state(cfg: ModelConfig, opt, tree, device="cpu") -> dict:
+    """The port's optimizer state from the JAX package's (``opt.init_specs``
+    of the same config, as nested dicts of numpy arrays): the moments of
+    AdamW (``mu``, ``nu``) or Adafactor (``vr``, ``vc``) and the step
+    ``count``, as tensors of each spec's dtype on ``device``. ``opt`` is the
+    port's :class:`~repro_torch.optim.Optimizer`."""
+    return _load_tree(opt.init_specs(model_specs(cfg)), tree, device, "opt")
 
 
 def _layer(tree, l: int):
@@ -196,19 +221,84 @@ def _ffn_apply(cfg, bp, h):
     return h + out
 
 
+def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out):
+    """One block of the pattern at full sequence length: a Mamba block, or
+    self attention (LOCAL: within the window) and, in an encoder-decoder
+    model's decoder, cross attention over ``enc_out``; then the FFN."""
+    if kind == MAMBA:
+        h = h + ssm_mod.ssm_forward(cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps))
+    else:
+        window = cfg.window_size if kind == LOCAL else 0
+        a = attn_mod.self_attention(cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
+                                    positions=positions, causal=causal, window=window)
+        if cfg.use_post_norm:
+            a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
+        h = h + a
+        if enc_out is not None:
+            enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
+            h = h + attn_mod.cross_attention(
+                cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
+    if _has_ffn(cfg, kind):
+        h = _ffn_apply(cfg, bp, h)
+    return h
+
+
+def _group_forward(cfg, gp, h, positions, enc_out, *, causal):
+    """One pattern group (``gp`` its blocks ``b0 ..``) at full length."""
+    for i, kind in enumerate(cfg.pattern):
+        h = _block_forward(cfg, gp[f"b{i}"], kind, h, positions=positions, causal=causal,
+                           enc_out=enc_out)
+    return h
+
+
+# the products whose outputs the "dots" policy keeps: matrix products with
+# no batch dimension (every weight product of the model), as JAX's
+# dots_with_no_batch_dims_saveable keeps them
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` recomputed in the backward pass per ``cfg.remat_policy``:
+    ``"full"`` keeps only its inputs (``checkpoint``, non-reentrant),
+    ``"dots"`` also keeps the outputs of its weight products (a selective
+    checkpoint), ``"none"`` keeps everything autograd keeps. Without grad
+    (serving) ``fn`` runs as it is."""
+    if cfg.remat_policy == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat_policy == "dots":
+            return torch_checkpoint.checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                   _save_dots))
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def _run_encoder(cfg, params, enc_embeds):
     """The encoder over [B, enc_S, D] input embeddings: each layer
     bidirectional self attention (the flash kernel at ``causal=False``)
-    and its FFN, then ``enc_norm``. Returns [B, enc_S, D]."""
+    and its FFN (recomputed in the backward pass per ``cfg.remat_policy``),
+    then ``enc_norm``. Returns [B, enc_S, D]."""
     h = enc_embeds.to(cfg.activation_dtype)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+    def layer(h, lp):
+        return _block_forward(cfg, lp, ATTN, h, positions=positions, causal=False,
+                              enc_out=None)
+
+    layer = _remat(cfg, layer)
     for l in range(cfg.num_encoder_layers):
-        lp = _layer(params["encoder"], l)
-        a = attn_mod.self_attention(cfg, lp["attn"], rmsnorm(h, lp["ln_attn"], cfg.norm_eps),
-                                    positions=positions, causal=False)
-        if cfg.use_post_norm:
-            a = rmsnorm(a, lp["post_ln_attn"], cfg.norm_eps)
-        h = _ffn_apply(cfg, lp, h + a)
+        h = layer(h, _layer(params["encoder"], l))
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -240,6 +330,75 @@ def _logits(cfg, params, h):
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
+
+
+def _decoder_stack(cfg, params, h, *, positions, causal, enc_out, aux_losses):
+    """The decoder groups over [B, S, D] activations, then ``final_norm``.
+    An MoE model appends its load-balance loss to ``aux_losses``, taken, as
+    the reference takes it, from the first group's first MoE block on the
+    stack's input: a representative sample of the router distribution."""
+    if aux_losses is not None and cfg.moe_num_experts:
+        first = _layer(params["decoder"], 0)
+        for i in range(len(cfg.pattern)):
+            bp = first[f"b{i}"]
+            if "moe" in bp:
+                y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
+                aux_losses.append(moe_mod.moe_aux_loss(cfg, bp["moe"], y))
+                break
+    group = _remat(cfg, partial(_group_forward, cfg, causal=causal))
+    for l in range(cfg.num_groups):
+        h = group(_layer(params["decoder"], l), h, positions, enc_out)
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+# bytes of float32 logits the loss materialises at once (one chunk of
+# positions); a whole batch's would not fit beside the model at the
+# training shapes (roberta-large, B 32 x S 2048: 13.2 GB)
+LOSS_CHUNK_BYTES = 1 << 30
+
+
+def _token_losses(cfg, params, h, targets):
+    """logsumexp - gold of each position: h [B, n, D] (the positions that
+    predict), targets [B, n]; float32 [B, n]."""
+    logits = _logits(cfg, params, h)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Next-token (or, for an encoder-only model, MLM) cross-entropy, a
+    float32 scalar. ``batch``: ``tokens`` [B, S] and the model's other
+    inputs (:func:`_embed_inputs`); an encoder-only model's ``targets``
+    [B, S]. A causal model predicts token t + 1 at text position t (after
+    a vision stub's image positions); the log-sum-exp is taken in float32.
+    An MoE model adds ``moe_aux_loss_weight`` times its load-balance loss.
+    The logits are made a chunk of positions at a time
+    (:data:`LOSS_CHUNK_BYTES`), each chunk recomputed in the backward pass,
+    so the float32 logits of the whole batch never exist at once; each
+    position's loss is the reference's."""
+    h, enc_out = _embed_inputs(cfg, params, batch)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    aux: Optional[list] = [] if cfg.moe_num_experts else None
+    h = _decoder_stack(cfg, params, h, positions=positions,
+                       causal=not cfg.is_encoder_only, enc_out=enc_out, aux_losses=aux)
+    tokens = batch["tokens"]
+    n_txt = tokens.shape[1]
+    if cfg.is_encoder_only:
+        targets = batch["targets"]
+    else:  # the text positions that predict a next token
+        targets, h = tokens[:, 1:], h[:, -n_txt:, :][:, :-1, :]
+    B, n = targets.shape
+    chunk = max(1, LOSS_CHUNK_BYTES // (4 * B * cfg.vocab_size))
+    run = partial(_token_losses, cfg, params)
+    if torch.is_grad_enabled() and n > chunk:
+        run = partial(torch_checkpoint.checkpoint, run, use_reentrant=False)
+    losses = torch.cat([run(h[:, i:i + chunk], targets[:, i:i + chunk])
+                        for i in range(0, n, chunk)], dim=1)
+    ce = torch.mean(losses)
+    if aux:
+        ce = ce + cfg.moe_aux_loss_weight * sum(aux)
+    return ce
 
 
 # KV caches are padded to a multiple of CACHE_PAD, as in the JAX package

@@ -17,7 +17,13 @@
   fleet, rebalancing, site and chaos families.
 * ``ops.polca_tick``, ``ops.flash_attention`` and ``ops.decode_attention``
   take the plain version for CPU tensors without touching the kernels'
-  launch counters; the kernel wrappers refuse CPU tensors.
+  launch counters; the kernel wrappers refuse CPU tensors. Under grad,
+  ``ops.flash_attention`` on CPU tensors runs the training forward's and the
+  backward's plain versions without touching theirs; their wrappers refuse
+  CPU tensors too.
+* The training modules (``optim``, ``data``, ``checkpoint``, ``runtime``,
+  ``launch/train.py``) are scanned like the rest, and ``launch.train``
+  raises without a card unless ``--device cpu`` is given.
 * ``chip_smoke.py`` holds the kernels against their plain versions on the
   kernel test shapes of ``tests/test_kernels.py``.
 """
@@ -32,11 +38,12 @@ import torch
 import numpy as np
 
 from test_kernels import DECODE_CASES, FLASH_CASES, TICK_CASES, TICK_CONSTS
+from _torch_train_ref import BF16_STORAGE_RTOL, CONDITIONED, RTOL
 
 from repro_torch.experiments.scenario import FleetSpec, Scenario, TrafficSpec
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import decode_attention, flash_attention, ops, tick
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.device import resolve_devices
 from repro_torch.provisioning import (
     EnsembleSpec,
@@ -151,6 +158,42 @@ def test_cpu_attention_takes_plain_versions_without_launching():
     assert decode_attention.decode_attention.launches == 0
 
 
+def test_cpu_training_attention_takes_plain_versions_without_launching():
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((2, 24, 4, 16), generator=g, requires_grad=True)
+    k = torch.randn((2, 24, 2, 16), generator=g, requires_grad=True)
+    v = torch.randn((2, 24, 2, 16), generator=g, requires_grad=True)
+    fa = flash_attention
+    for fn in (fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd):
+        fn.launches = 0
+    o = ops.flash_attention(q, k, v, causal=True)
+    o.sum().backward()
+    assert torch.equal(o.detach(), fa.flash_attention_plain(q.detach(), k.detach(),
+                                                            v.detach(), causal=True))
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    _, lse = fa.flash_attention_lse_plain(q.detach(), k.detach(), v.detach())
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fa.flash_attention_lse(q.detach(), k.detach(), v.detach())
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fa.flash_attention_bwd(o.detach(), q.detach(), k.detach(), v.detach(), o.detach(), lse)
+    assert fa.flash_attention.launches == fa.flash_attention_lse.launches == \
+        fa.flash_attention_bwd.launches == 0
+
+
+def test_train_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "llama3.2-1b", "--smoke", "--steps", "2", "--batch", "2", "--seq",
+            "16", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(args + ["--device", "cuda"])
+    with pytest.raises(NotImplementedError, match="one device"):
+        train.main(args + ["--device", "cpu", "--model-par", "2"])
+    assert not any(tmp_path.iterdir())  # nothing ran
+    assert len(train.main(args + ["--device", "cpu"])) == 2
+
+
 def test_decode_split_covers_the_valid_slots():
     """Splits are whole 64-slot tiles, cover [0, valid_len) and give at least
     two blocks per SM when the valid slots are enough for that."""
@@ -171,7 +214,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_LOADED", {})
-    assert _build.sources() == ["decode_attention", "flash_attention", "tick"]
+    assert _build.sources() == ["decode_attention", "flash_attention", "flash_attention_bwd",
+                                "tick"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("tick")
     assert not (tmp_path / "kernels").exists()
@@ -188,6 +232,10 @@ def test_chip_smoke_checks_the_kernel_test_shapes():
                                 for c in cases]
     assert smoke.FLASH_CASES == by_name(FLASH_CASES, 6)
     assert smoke.DECODE_CASES == DECODE_CASES
+    # the training phase conditions the archs the training tests condition
+    # and bounds bf16 parameter storage as they do
+    assert smoke.TRAIN_CONDITIONED == CONDITIONED
+    assert smoke.BF16_STORAGE_RTOL == BF16_STORAGE_RTOL and smoke.TRAIN_F32_RTOL == RTOL
 
 
 def test_copied_numpy_modules_are_scanned():
@@ -202,7 +250,13 @@ def test_copied_numpy_modules_are_scanned():
             "src/repro_torch/obs/stream.py",
             "src/repro_torch/obs/export.py",
             "src/repro_torch/obs/incidents.py",
-            "src/repro_torch/obs/log.py"} <= rel
+            "src/repro_torch/obs/log.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/compression.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/checkpoint/checkpointer.py",
+            "src/repro_torch/runtime/fault_tolerance.py",
+            "src/repro_torch/launch/train.py"} <= rel
 
 
 def test_jax_scenario_with_hierarchy_and_faults_loads():

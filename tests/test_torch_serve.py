@@ -63,6 +63,7 @@ from repro.models import model as jax_model
 from repro.models import moe as jax_moe
 from repro.models.config import ShapeConfig as JaxShapeConfig
 from repro.models.param import init_params as jax_init_params
+from _torch_train_ref import shared_params as _shared_params
 from repro_torch.configs import ALL, get_config, smoke_config
 from repro_torch.launch.serve import ServeEngine
 from repro_torch.launch.steps import build_decode_step, build_prefill_step
@@ -91,38 +92,6 @@ def _configs(arch, dtype):
     """(JAX config, port config) of the smoke model in ``dtype``."""
     jcfg = jax_smoke_config(arch).replace(dtype=dtype)
     return jcfg, smoke_config(arch).replace(dtype=getattr(torch, dtype))
-
-
-def _shared_params(jcfg, seed=0, condition=False):
-    """JAX-initialised parameters as a numpy tree, zero leaves filled. With
-    ``condition``, the attention weights (the decoder's self and cross
-    attention, the encoder's self attention) are rescaled from the JAX
-    init's fan-in (the second-to-last dim: the head count for ``wq [D, H,
-    hd]``) to a fan-in over each product's contraction dims (D for
-    wq/wk/wv, H * hd for wo), as ``chip_smoke.py::condition_attention``
-    does: the JAX init gives attention scores of standard deviation ~85, a
-    nearly one-hot softmax that turns any two bf16 rounding orders into
-    O(1) differences after a few layers (the smoke models' prefill logits,
-    JAX jitted against JAX eager in bf16: jamba 0.073, flan-t5-xxl 0.056,
-    whisper-base 0.051; conditioned 0.012 and 0.007 for the last two)."""
-    rng = np.random.default_rng(seed)
-    tree = jax.tree.map(np.asarray, jax_init_params(jax_model.model_specs(jcfg, 1),
-                                                    jax.random.key(seed)))
-
-    def fill(x):
-        if not x.any():
-            return (0.05 * rng.standard_normal(x.shape)).astype(x.dtype)
-        return x
-
-    tree = jax.tree.map(fill, tree)
-    if condition:
-        H, KV, D = jcfg.padded_heads, jcfg.num_kv_heads, jcfg.d_model
-        blocks = list(tree["decoder"].values()) + ([tree["encoder"]] if "encoder" in tree else [])
-        for a in (blk[k] for blk in blocks for k in ("attn", "cross") if k in blk):
-            for name, f in (("wq", (H / D) ** 0.5), ("wk", (KV / D) ** 0.5),
-                            ("wv", (KV / D) ** 0.5), ("wo", H ** -0.5)):
-                a[name] = (a[name].astype(np.float32) * np.float32(f)).astype(a[name].dtype)
-    return tree
 
 
 def _extra(cfg, seed=6):
