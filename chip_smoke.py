@@ -64,7 +64,8 @@ kernels:
 * training (phase k): the flash backward kernel
   (``csrc/flash_attention_bwd.cu``) against its plain version at the
   training tests' shapes and at roberta-large's and llama3.2-1b's training
-  shapes, two launches bit-equal, and timed beside SDPA's backward; one
+  shapes, two launches bit-equal, and timed beside SDPA's backward (the
+  training forward beside SDPA's forward); one
   float32 train step of every registry arch's smoke config card vs CPU; a
   bf16 train step at full width cut to 2 layers with the kernels against
   autograd of the plain attention (and failing with the backward zeroed);
@@ -312,15 +313,38 @@ def device_ms(fns, calls: int, replays: int = 5) -> float:
     return ms
 
 
+def kernel_split(fn, calls: int = 3) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each CUDA kernel it
+    launches, by kernel name: torch.profiler's device events over ``calls``
+    calls after a warm-up one, read as :func:`torch_engine_breakdown` reads
+    them. Empty when the profiler saw no device event (not measured)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0]
+            split[name] = split.get(name, 0.0) + e.device_time / calls / 1e3
+    return split
+
+
 def ptxas_report(name: str) -> list:
     """One line per kernel instance of ``csrc/<name>.cu`` from its build log:
     registers and spill bytes, as ``nvcc -Xptxas -v`` reported them, then
-    ptxas's performance notes (a wgmma chain it serialized)."""
+    ptxas's performance notes (a wgmma chain it serialized, C7512) and
+    warnings (a setmaxnreg it ignored)."""
     import shutil
     from repro_torch.kernels import _build
     rows, fn, spill, notes = [], None, "", []
     for line in _build.build_log(name).splitlines():
-        if "Potential Performance Loss" in line:
+        if "Potential Performance Loss" in line or "warning" in line.lower():
             notes.append(f"ptxas {name}: {line.split(':', 1)[1].strip()}")
         elif "Compiling entry function" in line:
             fn = line.split("'")[1]
@@ -2357,6 +2381,17 @@ BWD_CASES = [
     (2, 130, 130, 8, 8, 64, "bfloat16", False, 0, 50.0, 0),
     (2, 200, 261, 16, 2, 64, "bfloat16", True, 0, 50.0, 61),
     (2, 77, 150, 4, 4, 64, "bfloat16", False, 0, 0.0, 0),
+    # the tensor-core instance's tiles (128-row blocks, 64-row loop tiles, a
+    # 4-stage ring): Sq and Skv past 256 and off the 64- and 128-row grids,
+    # so that both rings wrap and both ragged edges are met; a causal
+    # diagonal inside a 128-key block (q_offset 0, and -70: 70 rows without
+    # a key); a window edge on a tile border; G = 8 and G = 1; softcaps
+    (1, 300, 333, 8, 1, 64, "bfloat16", False, 0, 0.0, 0),
+    (2, 270, 270, 4, 2, 64, "bfloat16", True, 0, 0.0, 0),
+    (1, 300, 300, 8, 1, 64, "bfloat16", True, 0, 0.0, -70),
+    (1, 384, 384, 4, 2, 64, "bfloat16", True, 128, 0.0, 0),
+    (2, 290, 290, 4, 4, 64, "bfloat16", True, 0, 30.0, 0),
+    (1, 330, 275, 8, 2, 64, "bfloat16", False, 128, 50.0, 0),
 ]
 # roberta-large's and llama3.2-1b's training shapes (bf16, hd 64)
 TRAIN_ATTN = {"roberta": (32, 2048, 2048, 16, 16, 64, "bfloat16", False, 0, 0.0, 0),
@@ -2538,11 +2573,14 @@ def check_backward_cases(dev) -> dict:
 def time_backward(dev, name: str, calls: int = 5) -> dict:
     """The backward kernel at a training shape: device and call time, the
     plain version's, scaled_dot_product_attention's backward on the same
-    inputs (the library, timed here and never called by the port), the
-    training forward's time, and the bound: 10 B H hd flops a attended
-    (query, key) pair (S = Q K^T again, dP, dV, dK, dQ) at the bf16 peak,
-    or q, k, v, o, dO and lse read once and dq, dk, dv written once at the
-    HBM rate."""
+    inputs (the library, timed here and never called by the port), and the
+    bound: 10 B H hd flops a attended (query, key) pair (S = Q K^T, dP, dV,
+    dK, dQ: the minimum; the kernel's two passes make S and dP twice, 14)
+    at the bf16 peak, or q, k, v, o, dO and lse read once and dq, dk, dv
+    written once at the HBM rate. Also the training forward (the flash
+    kernel's launch with the row log-sum-exp): its device time, SDPA's
+    forward on the same inputs, and its bound, 4 B H hd flops a pair, or q,
+    k, v read and o, lse written once."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2557,7 +2595,8 @@ def time_backward(dev, name: str, calls: int = 5) -> dict:
     kernel = lambda: fa.flash_attention_bwd(do, q, k, v, o, lse, causal=causal)  # noqa: E731
     row = {"ms": device_ms([kernel], calls=calls), "call_ms": cuda_ms(kernel, reps=calls),
            "forward_ms": device_ms([lambda: fa.flash_attention_lse(q, k, v, causal=causal)],
-                                   calls=calls)}
+                                   calls=calls),
+           "split_ms": kernel_split(kernel)}
     plain = lambda: fa.flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal)  # noqa: E731
     plain()
     row["plain_ms"] = cuda_ms(plain, reps=1)
@@ -2569,18 +2608,32 @@ def time_backward(dev, name: str, calls: int = 5) -> dict:
     library()
     row["library_ms"] = cuda_ms(library, reps=calls)
     del out
+    with torch.no_grad():
+        row["forward_library_ms"] = device_ms(
+            [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                    enable_gqa=True)], calls=calls)
     pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
     flops = 10 * B * H * hd * pairs
     nbytes = 2 * (3 * B * Sq * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * Sq \
         + 2 * (B * Sq * H * hd + 2 * B * Skv * KV * hd)
     row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+    fwd_flops = 4 * B * H * hd * pairs
+    fwd_bytes = 2 * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * Sq
+    row["forward_bound_ms"], row["forward_bound_by"] = bound_ms(fwd_flops, fwd_bytes)
     say(f"kernel flash_attention_bwd at {name}'s training shape B={B} S={Sq} H={H} KV={KV} "
         f"hd={hd} {dt} {'causal' if causal else 'bidirectional'} "
         f"({fa.bwd_variant(q.dtype, hd)}): device {row['ms']:.4f} ms, call "
         f"{row['call_ms']:.4f} ms (plain version {row['plain_ms']:.3f} ms; "
-        f"scaled_dot_product_attention's backward {row['library_ms']:.4f} ms; the training "
-        f"forward {row['forward_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+        f"scaled_dot_product_attention's backward {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}: {flops / 1e12:.3f} TFLOP, "
+        f"{nbytes / 1e9:.3f} GB; at the kernel's 14 flops a pair "
+        f"{flops * 1.4 / H100_BF16_FLOPS * 1e3:.4f} ms); its kernels (torch.profiler, device "
+        f"ms a call): " + (", ".join(f"{n} {t:.4f}" for n, t in row["split_ms"].items())
+                           or "not measured (the profiler saw no device event)"))
+    say(f"kernel flash_attention_lse (the training forward) at {name}'s training shape: "
+        f"device {row['forward_ms']:.4f} ms (scaled_dot_product_attention's forward "
+        f"{row['forward_library_ms']:.4f} ms; bound {row['forward_bound_ms']:.4f} ms by "
+        f"{row['forward_bound_by']}: {fwd_flops / 1e12:.3f} TFLOP, {fwd_bytes / 1e9:.3f} GB)")
     return row
 
 
@@ -2897,7 +2950,8 @@ def training(dev) -> dict:
             "launches": trained["roberta-large"]["launches"],
             "max_abs_err": errs["roberta"]["max_abs_err"],
             **{k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "forward_ms")},
+                                 "library_ms", "forward_ms", "forward_library_ms",
+                                 "forward_bound_ms", "forward_bound_by", "split_ms")},
             "llama": {**timing["llama"], "max_abs_err": errs["llama"]["max_abs_err"]},
             "trained": trained, "bf16_train_step_gate": gate}
 

@@ -13,7 +13,8 @@
 // Method (the flash-attention-2 backward). The forward's train launch writes
 // the float32 row log-sum-exp lse = m + log(l) of the scaled, softcapped,
 // masked scores, +inf for a row with no key. Here:
-//   1. delta_kernel: D = rowsum(dO * O), float32 [B, H, Sq];
+//   1. D = rowsum(dO * O) of every row (delta_kernel, float32 [B, H, Sq];
+//      the tensor-core kernel's stats_kernel keeps lse log2(e) beside it);
 //   2. a dK/dV pass: a block owns one KV tile of one KV head and loops over
 //      the G query heads of that KV head and over every query tile that can
 //      attend the tile, recomputing P = exp(c - lse) from Q and K (c the
@@ -28,28 +29,52 @@
 // dV, are exactly 0, never NaN. c' = 1 - (c / softcap)^2 is the softcap's
 // derivative (1 without a softcap).
 //
-// Bound: operations. The backward recomputes S and does four more products
-// (dP, dV, dK, dQ): 10 B H Sq Skv hd flops over the attended pairs (about
-// half of them when causal) against reading Q, K, V, O, dO and lse and
-// writing dQ, dK, dV once: at roberta-large's training shape (B 32, S 2048,
-// H 16, hd 64) ~1.4 TFLOP against ~1.1 GB, far past the ridge point.
+// Bound: operations. The minimum is five products a attended (query, key)
+// pair (S = Q K^T, dP = dO V^T, dV, dK, dQ): 10 B H hd flops a pair (about
+// half the pairs when causal) against reading Q, K, V, O, dO and lse and
+// writing dQ, dK, dV once. At roberta-large's training shape (B 32, S 2048,
+// H 16, hd 64) that is 1.374 TFLOP against 1.08 GB: 1.39 ms at the bf16
+// peak, far past the ridge point (the bound chip_smoke.py::time_backward
+// prints). The two passes make seven products: each computes S and dP, so
+// that every output has one writer and no float atomic is needed; 14 flops
+// a pair, 1.95 ms at roberta's shape. A one-pass kernel (dQ summed from the
+// dK/dV blocks) would need dQ accumulated across blocks in a fixed order
+// without atomics and a schedule of those blocks that cannot deadlock; it is
+// not attempted.
 //
 // Two kernel families, chosen by (dtype, hd) in the Python wrapper:
 //
-// * tensor core (bf16, hd 64): mma.sync m16n8k16 with float32 accumulators.
-//   128 threads; each of the four warps owns 16 rows of the block's 64 (keys
-//   in the dK/dV pass, queries in the dQ pass). The block's fixed operands
-//   (K and V, or Q and dO) stay in shared memory; the loop's tiles (Q and
-//   dO, or K and V) are copied by cp.async into two shared-memory buffers,
-//   the next tile's copy running under this tile's products; every operand
-//   reaches the tensor cores by ldmatrix (rows padded to 72 bf16 so that it
-//   hits distinct banks), the second products' B operands (dO and Q for dV
-//   and dK, K for dQ) transposed by ldmatrix.trans from the same tiles. A
-//   loop tile is taken in two halves of 32 rows, so that S and dP take 32
-//   registers, not 64: three blocks a SM. P and dS go from the product's
-//   accumulator registers straight into the next product's A fragments,
-//   rounded to bf16. Not yet fast: 64-row tiles, mma.sync rather than wgmma,
-//   and the dK/dV pass recomputes S = Q K^T that the dQ pass computes again.
+// * tensor core (bf16, hd 64): wgmma fed by TMA, warp-specialised. A block
+//   of either pass is a producer warpgroup, one thread of which issues every
+//   load (the warpgroup keeps 24 registers: setmaxnreg), and two consumer
+//   warpgroups of 64 rows that take 240. stats_kernel first writes each
+//   row's (lse log2(e), D) pair into a [B, H, Sq rounded up to 128] scratch
+//   (+inf and 0 past Sq, so that P = 0 there), from 16-byte loads.
+//   - dK/dV pass: a block owns 128 keys of one KV head. K and V come in once
+//     by TMA (128-byte swizzle); then the (query head, 64-query tile) pairs
+//     of its group stream through a 4-stage ring of mbarrier-guarded stages,
+//     each Q and dO by TMA (rows past Sq zero-filled) and the pair's
+//     statistics by a bulk copy. Per pair a consumer warpgroup runs S^T = K
+//     Q^T and dP^T = V dO^T as wgmma m64n64k16 chains (SS, both K-major),
+//     then P^T = exp2(S^T scale log2(e) - lse log2(e)) (one FFMA and one
+//     ex2) and dS^T = P^T (dP^T - D) on the accumulator registers, rounds
+//     both to bf16 in registers, and runs dV += P^T dO and dK += dS^T Q as RS
+//     wgmma, dO and Q read MN-major from the same stage through the
+//     descriptor's transpose.
+//   - dQ pass: a block owns 128 queries of one query head. Q and dO come in
+//     once, 64-key K and V tiles stream through the ring; S = Q K^T and dP =
+//     dO V^T (SS), dS, then dQ += dS K (RS, K read MN-major). The two
+//     warpgroups take turns issuing their products (named barriers), S and
+//     dP of tile i with dQ of tile i - 1, as the forward does.
+//   P and dS never leave registers. Only tiles that cross the causal
+//   diagonal, a window edge or the ragged end of Sq or Skv apply the mask: a
+//   branch uniform over a warpgroup around the elementwise step, so that no
+//   wgmma sits on a divergent path (ptxas would serialize them all, C7512);
+//   the softcap is a template instance. Measured and rejected on the card
+//   (PERF.md, PR 24): turns, or the dQ pass's deferred products, in the
+//   dK/dV pass (its S^T, dP^T, dK and dV accumulators already take 128
+//   registers a thread of the 168 ptxas allots; 36 bytes spill as it is),
+//   and the fixed operands (K, Q) as register fragments.
 // * CUDA core (float32, and bf16 at the other head dims): the same two
 //   passes with 32-row tiles staged in shared memory as float32 and every
 //   product as fmaf, for float32's 2e-5 contract (TF32 would break it) and
@@ -59,6 +84,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -71,7 +99,7 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;  // [B, H, Sq], the forward's
-  float* delta;      // [B, H, Sq], written by delta_kernel
+  float* delta;      // [B, H, Sq], written by delta_kernel (the CUDA-core passes)
   void* dq;          // [B, Sq, H, hd], contiguous
   void* dk;          // [B, Skv, KV, hd], contiguous
   void* dv;
@@ -372,343 +400,491 @@ int dispatch(const BwdArgs& a, cudaStream_t stream) {
 }  // namespace cc
 
 // ---------------------------------------------------------------------------
-// Tensor-core passes (bf16, hd 64): mma.sync m16n8k16, float32 accumulators
+// Tensor-core passes (bf16, hd 64): wgmma fed by TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-constexpr int kThreads = 128;  // four warps of 16 rows each
-constexpr int kTile = 64;      // rows a block, and rows of a loop tile
-constexpr int kHD = 64;
-constexpr int kLD = kHD + 8;   // padded smem row (bf16): fragment loads hit distinct banks
-constexpr int kTileElems = kTile * kLD;
-constexpr int kTileBytes = kTileElems * 2;
-// six tiles (the block's two, the loop's two, double-buffered) and the
-// loop's lse and D, double-buffered
-constexpr int kSmem = 6 * kTileBytes + 4 * kTile * 4;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kRow = 128;          // bytes of a swizzled tile row: 64 bf16
+constexpr int kBlockRows = 128;    // rows a block owns: two consumer warpgroups of 64
+constexpr int kLoopRows = 64;      // rows of a loop tile (queries, or keys in the dQ pass)
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;    // the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;
+// the producer warpgroup keeps 24 registers and leaves 240 to each consumer
+// thread: 128 x 24 + 256 x 240 <= 65536
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kBlockTile = kBlockRows * kRow;  // a [128][64] bf16 tile, 16 KB
+constexpr int kLoopTile = kLoopRows * kRow;    // a [64][64] bf16 tile, 8 KB
+constexpr int kStageBytes = 2 * kLoopTile;     // Q and dO, or K and V
+constexpr int kStatBytes = kLoopRows * 8;      // a stage's (lse log2(e), D) pairs (dK/dV pass)
+// Shared memory: the block's two tiles, the ring's stages, the stages'
+// statistics, then the mbarriers; 1024 bytes of slack align the tiles to the
+// swizzle's 1024-byte period.
+constexpr int kDataBytes = 2 * kBlockTile + kStages * kStageBytes;
+constexpr int kSmem = 1024 + kDataBytes + kStages * kStatBytes + 8 * (1 + 2 * kStages);
 
-// d += a b: m16n8k16, A row-major [16][16] and B "col" ([n][k] rows) bf16
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The rows of the statistics [B, H, stat_rows(Sq)] of (lse log2(e), D)
+// pairs: Sq rounded up to a block, rows past Sq (+inf, 0), so that a P
+// made from them is 0 and every stage's 512 bytes can be copied whole.
+inline int stat_rows(int Sq) { return (Sq + kBlockRows - 1) / kBlockRows * kBlockRows; }
 
-// four 8 x 8 b16 matrices from shared memory, one row address a lane
-// (lanes 8i .. 8i + 7 give matrix i's rows); .trans hands each thread the
-// transposed pair (rows 2 (t % 4) and + 1 of column t / 4)
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16 bytes global -> shared without registers; zeros when !valid (no read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + 64) of head `head` of a [B, S, heads, 64] bf16 tensor into
-// dst[64][kLD] by cp.async (zeros past S); the caller commits and waits.
-// 16-byte copies: the wrapper checks that the base and strides are
-// multiples of 16 bytes.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long sb, long long ss, long long sh, int b,
-                                          int head, int r0, int S) {
-  const uint32_t d0 = smem_u32(dst);
-  for (int idx = threadIdx.x; idx < kTile * (kHD / 8); idx += kThreads) {
-    const int r = idx / (kHD / 8), c = idx % (kHD / 8);
-    const bool valid = r0 + r < S;
-    const __nv_bfloat16* g = valid ? src + b * sb + (r0 + r) * ss + head * sh + 8 * c : src;
-    cp_async16(d0 + (r * kLD + 8 * c) * 2, g, valid);
-  }
-}
-
-// acc[4][4] = A times B^T, A the warp's 16 rows of a [64][kLD] tile
-// (rows 16 w ..), B rows [n0, n0 + 32) of another: acc[nt] is columns
-// 8 nt .. 8 nt + 7 of the [16][32] result. Both operands come from shared
-// memory by ldmatrix, k (the 64 columns) outer: four independent
-// accumulators a step.
-__device__ __forceinline__ void product_nt(float (&acc)[4][4], const __nv_bfloat16* a_tile,
-                                           const __nv_bfloat16* b_tile, int n0, int w,
-                                           int lane) {
-  const uint32_t a_base = smem_u32(a_tile) +
-                          ((16 * w + lane % 8 + 8 * ((lane / 8) % 2)) * kLD + 8 * (lane / 16)) * 2;
-  const uint32_t b_base = smem_u32(b_tile) +
-                          ((n0 + 8 * (lane / 16) + lane % 8) * kLD + 8 * ((lane / 8) % 2)) * 2;
+// The statistics of every row: D = rowsum(dO * O) from 16-byte loads, eight
+// threads a (b, i, h) row summing in a fixed order, and lse log2(e) beside it
+__global__ void __launch_bounds__(256) stats_kernel(BwdArgs a, float2* stats, int rows) {
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool live = row < static_cast<long long>(a.B) * a.H * rows;  // whole warps shuffle
+  const int i = static_cast<int>(row % rows);
+  const long long bh = row / rows;
+  const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+  float s = 0.f;
+  if (live && i < a.Sq) {
+    const uint4 o = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.o) +
+                                                    b * a.o_sb + i * a.o_ss + h * a.o_sh + 8 * part);
+    const uint4 d = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) +
+                                                    b * a.d_sb + i * a.d_ss + h * a.d_sh + 8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t f[4];
-    ldsm_x4(a_base + 16 * kk * 2, f);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b_base + (16 * np * kLD + 16 * kk) * 2, b);
-      mma(acc[2 * np], f, b[0], b[1]);
-      mma(acc[2 * np + 1], f, b[2], b[3]);
+    for (int j = 0; j < 4; ++j) {
+      const float2 of = __bfloat1622float2(o2[j]), df = __bfloat1622float2(d2[j]);
+      s = fmaf(of.x, df.x, s);
+      s = fmaf(of.y, df.y, s);
     }
   }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (live && part == 0)
+    stats[row] = i < a.Sq ? make_float2(a.lse[bh * a.Sq + i] * kLog2e, s)
+                          : make_float2(__int_as_float(0x7f800000), 0.f);
 }
 
-// acc[8][4] += X times src rows [k0, k0 + 32): X the warp's [16][32]
-// operand in accumulator layout x (rounded to bf16), src [k rows][64 (n)
-// columns] row-major, read transposed by ldmatrix
-__device__ __forceinline__ void product_acc(float (&acc)[8][4], const float (&x)[4][4],
-                                            const __nv_bfloat16* src, int k0, int lane) {
-  const uint32_t base = smem_u32(src) +
-                        ((k0 + lane % 8 + 8 * ((lane / 8) % 2)) * kLD + 8 * (lane / 16)) * 2;
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P = exp(c - lse) and dS = P (dP - D) c' of one (query, key) pair, in place
+// on the wgmma accumulators: s the raw score q.k, dp = dO.v, l2 = lse
+// log2(e) of the query's row, d its D; `ok` false for a masked pair (P = 0).
+// Without a softcap one FFMA and one exp2 make P. With one, tanh(x / cap) =
+// 1 - 2 / (e^(2x / cap) + 1) needs no branch (tanhf branches on |x|).
+template <bool kCap>
+__device__ __forceinline__ void grad_pair(float& s, float& dp, float l2, float d,
+                                          const BwdArgs& a, bool ok) {
+  float p, dt = 1.f;
+  if constexpr (kCap) {
+    const float th =
+        1.f - __fdividef(2.f, exp2_ftz(s * (2.f * kLog2e * a.scale / a.softcap)) + 1.f);
+    p = exp2_ftz(fmaf(th, a.softcap * kLog2e, -l2));
+    dt = 1.f - th * th;
+  } else {
+    p = exp2_ftz(fmaf(s, a.scale * kLog2e, -l2));
+  }
+  p = ok ? p : 0.f;
+  s = p;
+  dp = kCap ? p * (dp - d) * dt : p * (dp - d);
+}
+
+// Whether every query of [q_first, q_last] attends every key of [t_first,
+// t_last] (queries past Sq have lse = +inf, so P = 0 there without a mask)
+__device__ __forceinline__ bool interior(const BwdArgs& a, int q_first, int q_last, int t_first,
+                                         int t_last) {
+  q_last = min(q_last, a.Sq - 1);
+  return t_last < a.Skv && (!a.causal || t_last <= a.q_offset + q_first) &&
+         (a.window <= 0 || t_first > a.q_offset + q_last - a.window);
+}
+
+// P^T and dS^T of a dK/dV tile: st = S^T and dp = dP^T of the warpgroup's
+// keys x the tile's 64 queries; entry 4j + 2hr + c is key `key0 + 8 hr`,
+// query q0 + 8j + 2 (lane % 4) + c, whose (lse log2(e), D) pair the stage
+// holds at stats[2 (8j + 2 (lane % 4) + c)].
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void grad_tile_t(float (&st)[32], float (&dp)[32], const float* stats,
+                                            const BwdArgs& a, int key0, int q0, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    const float4 ld = *reinterpret_cast<const float4*>(stats + 2 * col);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(base + (16 * kk * kLD + 16 * np) * 2, b);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * hr + c;
+        const bool ok = !kMask || attends(a, q0 + col + c, key0 + 8 * hr);
+        grad_pair<kCap>(st[e], dp[e], c ? ld.z : ld.x, c ? ld.w : ld.y, a, ok);
+      }
   }
 }
 
-// write the warp's [16][64] accumulator times `mul` as bf16 into rows
-// row0 + .. of a contiguous [.., heads, 64] output at head `head`
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[8][4],
-                                           float mul, long long b_rows, int row0, int n_rows,
-                                           int heads, int head, int lane) {
-  const int g = lane / 4, t = lane % 4;
+// P and dS of a dQ tile: s = S and dp = dP of the thread's rows qi[hr]
+// (statistics st[hr]) x the tile's keys t0 + 8j + 2 (lane % 4) + c
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void grad_tile(float (&s)[32], float (&dp)[32], const float2 (&st)[2],
+                                          const BwdArgs& a, const int (&qi)[2], int t0, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * hr + c;
+        const bool ok = !kMask || attends(a, qi[hr], t0 + 8 * j + 2 * (lane % 4) + c);
+        grad_pair<kCap>(s[e], dp[e], st[hr].x, st[hr].y, a, ok);
+      }
+}
+
+// An m64n64 accumulator as the bf16 A fragments of the four k16 steps of a
+// product whose depth is its 64 columns
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// acc[32] += A B over 64 of depth: A from the fragments f, B the MN-major
+// [64 depth rows][64 columns] tile at `tile` (read transposed by the
+// descriptor, a k16 step 16 rows = 2048 bytes on)
+__device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&f)[4][4],
+                                           uint32_t tile) {
+  const uint64_t db = smem_desc(tile, kLoopTile, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(acc, f[kk], db + ((kk * 16 * kRow) >> 4));
+}
+
+// acc[32] = A B^T over the 64 head-dim columns: A the 64 rows at `a_rows`, B
+// the 64 rows at `b_rows`, both K-major (a k16 step 32 bytes on)
+__device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a_rows, uint32_t b_rows) {
+  const uint64_t da = smem_desc(a_rows, 16, 1024), db = smem_desc(b_rows, 16, 1024);
+  clobber_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(acc, da + ((kk * 32) >> 4), db + ((kk * 32) >> 4), kk > 0);
+}
+
+// write a warpgroup's [64][64] accumulator times `mul` as bf16: the thread's
+// rows row0 and row0 + 8 (those below n_rows) of a contiguous [.., heads,
+// 64] output at head `head`
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[32], float mul,
+                                           long long b_rows, int row0, int n_rows, int heads,
+                                           int head, int lane) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + g + 8 * hr;
+    const int r = row0 + 8 * hr;
     if (r >= n_rows) continue;
-    __nv_bfloat16* p = out + ((b_rows + r) * heads + head) * kHD + 2 * t;
+    __nv_bfloat16* p = out + ((b_rows + r) * heads + head) * 64 + 2 * (lane % 4);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<uint32_t*>(p + 8 * nt) =
-          pack_bf16(acc[nt][2 * hr] * mul, acc[nt][2 * hr + 1] * mul);
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(p + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
   }
 }
 
-// dK, dV of keys [t0, t0 + 64) of KV head kvh; block (key tile, b * KV + kvh).
-// Warp w owns keys t0 + 16 w ..; the products run transposed: S^T = K Q^T,
-// dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, a query tile in two halves of
-// 32 so that S^T and dP^T take 32 registers, not 64 (three blocks a SM).
-// The loop runs over (query head of the group, query tile) pairs; the next
-// pair's Q and dO tiles are copied by cp.async into the other buffer while
-// this pair computes.
-__global__ void __launch_bounds__(kThreads, 3) dkdv_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + kTileElems;
-  __nv_bfloat16* Qs = Vs + kTileElems;       // [2] tiles
-  __nv_bfloat16* dOs = Qs + 2 * kTileElems;  // [2] tiles
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // [2][64]
-  float* dl_s = lse_s + 2 * kTile;                                 // [2][64]
+// dK, dV of keys [t0, t0 + 128) of KV head kvh; block (b * KV + kvh, key
+// block). Consumer warpgroup wg owns keys t0 + 64 wg ..: S^T = K Q^T, dP^T =
+// V dO^T (SS), then P^T and dS^T on the accumulators, then dV += P^T dO and
+// dK += dS^T Q (RS). The loop runs over the (query head of the group,
+// 64-query tile) pairs; one producer thread brings K and V in once and each
+// pair's Q, dO and statistics into the ring.
+template <bool kCap>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                BwdArgs a, const float2* stat_g, int rows) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t k_s = (base + 1023) & ~1023u, v_s = k_s + kBlockTile;
+  const uint32_t ring = v_s + kBlockTile;  // stage s: Q at ring + s kStageBytes, dO after it
+  const uint32_t stat_s = ring + kStages * kStageBytes;  // stage s: kStatBytes at + s kStatBytes
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (stat_s - base));
+  const uint32_t kv_bar = stat_s + kStages * kStatBytes;
+  const uint32_t full_bar = kv_bar + 8, empty_bar = full_bar + 8 * kStages;
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV, t0 = blockIdx.x * kTile;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout);
-  load_tile(Ks, static_cast<const __nv_bfloat16*>(a.k), a.k_sb, a.k_ss, a.k_sh, b, kvh, t0,
-            a.Skv);
-  load_tile(Vs, static_cast<const __nv_bfloat16*>(a.v), a.v_sb, a.v_ss, a.v_sh, b, kvh, t0,
-            a.Skv);
-  cp_async_commit();
+  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV, t0 = blockIdx.y * kBlockRows;
   int qb, qe;
-  query_range(a, t0, kTile, kTile, qb, qe);
-  const int nq = qe > qb ? (qe - qb + kTile - 1) / kTile : 0, n_iter = a.G * nq;
+  query_range(a, t0, kBlockRows, kLoopRows, qb, qe);
+  const int nq = qe > qb ? (qe - qb + kLoopRows - 1) / kLoopRows : 0, n_iter = a.G * nq;
 
-  // the Q, dO, lse and D of pair `it` into buffer `buf`
-  auto prefetch = [&](int it, int buf) {
-    const int h = kvh * a.G + it / nq, q0 = qb + (it % nq) * kTile;
-    load_tile(Qs + buf * kTileElems, q, a.q_sb, a.q_ss, a.q_sh, b, h, q0, a.Sq);
-    load_tile(dOs + buf * kTileElems, dout, a.d_sb, a.d_ss, a.d_sh, b, h, q0, a.Sq);
-    cp_async_commit();
-    if (threadIdx.x < kTile) {
-      const int qi = q0 + threadIdx.x;
-      const long long at = (static_cast<long long>(b) * a.H + h) * a.Sq + qi;
-      lse_s[buf * kTile + threadIdx.x] = qi < a.Sq ? a.lse[at] : __int_as_float(0x7f800000);
-      dl_s[buf * kTile + threadIdx.x] = qi < a.Sq ? a.delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers / 32);  // one arrival per consumer warp
     }
-  };
-  if (n_iter > 0) prefetch(0, 0);
-  cp_async_wait<1>();  // K and V are in (the first pair may still be in flight)
-  if (n_iter == 0) cp_async_wait<0>();
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  float dk[8][4], dv[8][4], sp[4][4], dp[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1, q0 = qb + (it % nq) * kTile;
-    if (it + 1 < n_iter) {
-      prefetch(it + 1, buf ^ 1);
-      cp_async_wait<1>();  // pair it's copies are done, it + 1's may run on
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x >= kConsumers) {  // the producer: one thread issues every load
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(kv_bar, 2 * kBlockTile);
+      tma_load_4d(k_s, &tm_k, kv_bar, 0, kvh, t0, b);
+      tma_load_4d(v_s, &tm_v, kv_bar, 0, kvh, t0, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty_bar + 8 * s, ((it / kStages) & 1) ^ 1);  // the stage is free
+        mbar_expect_tx(full_bar + 8 * s, kStageBytes + kStatBytes);
+        const int h = kvh * a.G + it / nq, q0 = qb + (it % nq) * kLoopRows;
+        const uint32_t q_t = ring + s * kStageBytes;
+        tma_load_4d(q_t, &tm_q, full_bar + 8 * s, 0, h, q0, b);
+        tma_load_4d(q_t + kLoopTile, &tm_do, full_bar + 8 * s, 0, h, q0, b);
+        bulk_load(stat_s + s * kStatBytes, stat_g + (static_cast<long long>(b) * a.H + h) * rows + q0,
+                  kStatBytes, full_bar + 8 * s);
+      }
     }
-    __syncthreads();  // pair it's tiles and statistics are visible to all
-    const __nv_bfloat16* Qb = Qs + buf * kTileElems;
-    const __nv_bfloat16* dOb = dOs + buf * kTileElems;
-    const float* lse_b = lse_s + buf * kTile;
-    const float* dl_b = dl_s + buf * kTile;
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = 32 * half;
-      product_nt(sp, Ks, Qb, n0, w, lane);   // S^T: keys x 32 queries
-      product_nt(dp, Vs, dOb, n0, w, lane);  // dP^T
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t0 + 16 * w + g + 8 * (e / 2), col = n0 + 8 * nt + 2 * t + (e & 1);
-          float p, ds;
-          grad_entry(a, attends(a, q0 + col, key), sp[nt][e], dp[nt][e], lse_b[col],
-                     dl_b[col], p, ds);
-          sp[nt][e] = p;
-          dp[nt][e] = ds;
-        }
-      product_acc(dv, sp, dOb, n0, lane);  // dV += P^T dO
-      product_acc(dk, dp, Qb, n0, lane);   // dK += dS^T Q
-    }
-    __syncthreads();  // every warp is done with buffer buf before it is refilled
+    return;
   }
+
+  reg_alloc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int kw = t0 + wg * 64;                 // the warpgroup's first key
+  const int key0 = kw + warp * 16 + lane / 4;  // the thread's keys key0, key0 + 8
+  const uint32_t k_wg = k_s + wg * 64 * kRow, v_wg = v_s + wg * 64 * kRow;
+  float dk[32], dv[32], st[32], dp[32];
+  uint32_t pf[4][4], sf[4][4];  // P^T and dS^T as A fragments
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+  auto issue_sdp = [&](int s) {
+    product_ss(st, k_wg, ring + s * kStageBytes);              // S^T
+    product_ss(dp, v_wg, ring + s * kStageBytes + kLoopTile);  // dP^T
+    wgmma_commit();
+  };
+  auto issue_dkdv = [&](int s) {
+    product_rs(dv, pf, ring + s * kStageBytes + kLoopTile);  // dV += P^T dO
+    product_rs(dk, sf, ring + s * kStageBytes);              // dK += dS^T Q
+    wgmma_commit();
+  };
+  auto grad = [&](int it) {
+    const int s = it % kStages, q0 = qb + (it % nq) * kLoopRows;
+    const float* sts = stats + s * (kStatBytes / 4);
+    if (interior(a, q0, q0 + kLoopRows - 1, kw, kw + 63))
+      grad_tile_t<kCap, false>(st, dp, sts, a, key0, q0, lane);
+    else
+      grad_tile_t<kCap, true>(st, dp, sts, a, key0, q0, lane);
+  };
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full_bar + 8 * s, (it / kStages) & 1);
+    wgmma_fence();
+    issue_sdp(s);
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dp);
+    grad(it);
+    pack_a(pf, st);
+    pack_a(sf, dp);
+    wgmma_fence();
+    issue_dkdv(s);
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pf);
+    fence_regs(sf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // done with the stage
+  }
+
   const long long b_rows = static_cast<long long>(b) * a.Skv;
-  store_rows(static_cast<__nv_bfloat16*>(a.dk), dk, a.scale, b_rows, t0 + 16 * w, a.Skv, a.KV,
-             kvh, lane);
-  store_rows(static_cast<__nv_bfloat16*>(a.dv), dv, 1.f, b_rows, t0 + 16 * w, a.Skv, a.KV, kvh,
-             lane);
+  store_rows(static_cast<__nv_bfloat16*>(a.dk), dk, a.scale, b_rows, key0, a.Skv, a.KV, kvh, lane);
+  store_rows(static_cast<__nv_bfloat16*>(a.dv), dv, 1.f, b_rows, key0, a.Skv, a.KV, kvh, lane);
 }
 
-// dQ of queries [q0, q0 + 64) of query head h; block (query tile, b * H + h).
-// Warp w owns queries q0 + 16 w ..: S = Q K^T, dP = dO V^T, dQ += dS K, a
-// KV tile in two halves of 32 keys. The next KV tile is copied by cp.async
-// into the other buffer while this one computes.
-__global__ void __launch_bounds__(kThreads, 3) dq_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + kTileElems;
-  __nv_bfloat16* Ks = dOs + kTileElems;     // [2] tiles
-  __nv_bfloat16* Vs = Ks + 2 * kTileElems;  // [2] tiles
+// dQ of queries [q0, q0 + 128) of query head h; block (b * H + h, query
+// block, the last first: causal rows there attend the most keys). Consumer
+// warpgroup wg owns queries q0 + 64 wg ..: S = Q K^T and dP = dO V^T (SS),
+// then dS on the accumulators, then dQ += dS K (RS). The producer brings Q
+// and dO in once and the 64-key K and V tiles into the ring. The two
+// warpgroups take turns issuing their products (named barriers 1 and 2): S
+// and dP of tile i together with dQ += dS K of tile i - 1, so that one
+// warpgroup's elementwise step runs under the other's products and under
+// its own dQ product; the first and last turns are peeled, so that no wgmma
+// sits under a branch inside the loop.
+template <bool kCap>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              BwdArgs a, const float2* stat_g, int rows) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u, do_s = q_s + kBlockTile;
+  const uint32_t ring = do_s + kBlockTile;  // stage s: K at ring + s kStageBytes, V after it
+  const uint32_t q_bar = ring + kStages * kStageBytes;
+  const uint32_t full_bar = q_bar + 8, empty_bar = full_bar + 8 * kStages;
 
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H, kvh = h / a.G;
-  const int q0 = blockIdx.x * kTile;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  load_tile(Qs, static_cast<const __nv_bfloat16*>(a.q), a.q_sb, a.q_ss, a.q_sh, b, h, q0, a.Sq);
-  load_tile(dOs, static_cast<const __nv_bfloat16*>(a.dout), a.d_sb, a.d_ss, a.d_sh, b, h, q0,
-            a.Sq);
-  cp_async_commit();
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, kvh = h / a.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
   int kb, ke;
-  key_range(a, q0, kTile, kTile, kb, ke);
-  auto prefetch = [&](int kt, int buf) {
-    load_tile(Ks + buf * kTileElems, k, a.k_sb, a.k_ss, a.k_sh, b, kvh, kt * kTile, a.Skv);
-    load_tile(Vs + buf * kTileElems, v, a.v_sb, a.v_ss, a.v_sh, b, kvh, kt * kTile, a.Skv);
-    cp_async_commit();
-  };
-  if (kb < ke) prefetch(kb, 0);
-  float lse[2], dl[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int qi = q0 + 16 * w + g + 8 * hr;
-    const long long at = (static_cast<long long>(b) * a.H + h) * a.Sq + qi;
-    lse[hr] = qi < a.Sq ? a.lse[at] : __int_as_float(0x7f800000);
-    dl[hr] = qi < a.Sq ? a.delta[at] : 0.f;
+  key_range(a, q0, kBlockRows, kLoopRows, kb, ke);
+  const int n_tiles = max(0, ke - kb);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers / 32);
+    }
+    mbar_fence_init();
   }
-  cp_async_wait<1>();  // Q and dO are in
-  if (kb >= ke) cp_async_wait<0>();
   __syncthreads();
 
-  float dq[8][4], sp[4][4], dp[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
-  for (int kt = kb; kt < ke; ++kt) {
-    const int buf = (kt - kb) & 1, t0 = kt * kTile;
-    if (kt + 1 < ke) {
-      prefetch(kt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x >= kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_bar, 2 * kBlockTile);
+      tma_load_4d(q_s, &tm_q, q_bar, 0, h, q0, b);
+      tma_load_4d(do_s, &tm_do, q_bar, 0, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty_bar + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_bar + 8 * s, kStageBytes);
+        const uint32_t k_t = ring + s * kStageBytes;
+        tma_load_4d(k_t, &tm_k, full_bar + 8 * s, 0, kvh, (kb + i) * kLoopRows, b);
+        tma_load_4d(k_t + kLoopTile, &tm_v, full_bar + 8 * s, 0, kvh, (kb + i) * kLoopRows, b);
+      }
     }
-    __syncthreads();
-    const __nv_bfloat16* Kb = Ks + buf * kTileElems;
-    const __nv_bfloat16* Vb = Vs + buf * kTileElems;
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = 32 * half;
-      product_nt(sp, Qs, Kb, n0, w, lane);   // S: queries x 32 keys
-      product_nt(dp, dOs, Vb, n0, w, lane);  // dP
+    return;
+  }
+
+  reg_alloc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int qw = q0 + wg * 64;  // the warpgroup's first query
+  const int qi[2] = {qw + warp * 16 + lane / 4, qw + warp * 16 + lane / 4 + 8};
+  // the rows' (lse log2(e), D); qi < stat_rows(Sq): the block lies inside
+  const float2 stat[2] = {stat_g[(static_cast<long long>(b) * a.H + h) * rows + qi[0]],
+                          stat_g[(static_cast<long long>(b) * a.H + h) * rows + qi[1]]};
+  const uint32_t q_wg = q_s + wg * 64 * kRow, do_wg = do_s + wg * 64 * kRow;
+  float dq[32], sc[32], dp[32];
+  uint32_t sf[4][4];  // dS of the tile before, as A fragments
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e / 2, key = t0 + n0 + 8 * nt + 2 * t + (e & 1);
-          float p, ds;
-          grad_entry(a, attends(a, q0 + 16 * w + g + 8 * hr, key), sp[nt][e], dp[nt][e],
-                     lse[hr], dl[hr], p, ds);
-          dp[nt][e] = ds;
-        }
-      product_acc(dq, dp, Kb, n0, lane);  // dQ += dS K
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+
+  auto issue_sdp = [&](int st) {
+    product_ss(sc, q_wg, ring + st * kStageBytes);               // S
+    product_ss(dp, do_wg, ring + st * kStageBytes + kLoopTile);  // dP
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int st) {
+    product_rs(dq, sf, ring + st * kStageBytes);  // dQ += dS K
+    wgmma_commit();
+  };
+  auto grad = [&](int i) {
+    const int t0 = (kb + i) * kLoopRows;
+    if (interior(a, qw, qw + 63, t0, t0 + kLoopRows - 1))
+      grad_tile<kCap, false>(sc, dp, stat, a, qi, t0, lane);
+    else
+      grad_tile<kCap, true>(sc, dp, stat, a, qi, t0, lane);
+  };
+
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  mbar_wait(q_bar, 0);
+  if (n_tiles > 0) {
+    if (wg == 1) named_arrive(1);  // warpgroup 0 goes first
+    mbar_wait(full_bar, 0);
+    named_sync(my_turn);
+    wgmma_fence();
+    issue_sdp(0);
+    named_arrive(their_turn);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    grad(0);
+    pack_a(sf, dp);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages, prev = (i - 1) % kStages;
+      mbar_wait(full_bar + 8 * st, (i / kStages) & 1);
+      named_sync(my_turn);
+      wgmma_fence();
+      issue_sdp(st);
+      issue_dq(prev);
+      named_arrive(their_turn);
+      wgmma_wait<1>();  // S and dP are done; the dQ product may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      grad(i);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(sf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * prev);  // done with tile i - 1's stage
+      pack_a(sf, dp);
     }
-    __syncthreads();
+    named_sync(my_turn);
+    wgmma_fence();
+    issue_dq((n_tiles - 1) % kStages);
+    if (wg == 0) named_arrive(their_turn);  // warpgroup 1's last turn: none follows
+    wgmma_wait<0>();
+    fence_regs(dq);
   }
   store_rows(static_cast<__nv_bfloat16*>(a.dq), dq, a.scale, static_cast<long long>(b) * a.Sq,
-             q0 + 16 * w, a.Sq, a.H, h, lane);
+             qi[0], a.Sq, a.H, h, lane);
 }
 
-int launch(const BwdArgs& a, cudaStream_t stream) {
+template <bool kCap>
+int launch_passes(const CUtensorMap (&m)[8], const BwdArgs& a, float2* stats,
+                  cudaStream_t stream) {
   static bool configured = false;  // the attribute is per kernel, set once
   if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<kCap>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
+      err = cudaFuncSetAttribute(dq_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 g1((unsigned)((a.Skv + kTile - 1) / kTile), (unsigned)(a.B * a.KV));
-  dkdv_kernel<<<g1, kThreads, kSmem, stream>>>(a);
+  const int rows = stat_rows(a.Sq);
+  const long long n = static_cast<long long>(a.B) * a.H * rows;
+  stats_kernel<<<static_cast<unsigned>((n * 8 + 255) / 256), 256, 0, stream>>>(a, stats, rows);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g2((unsigned)((a.Sq + kTile - 1) / kTile), (unsigned)(a.B * a.H));
-  dq_kernel<<<g2, kThreads, kSmem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g1(static_cast<unsigned>(a.B * a.KV),
+                static_cast<unsigned>((a.Skv + kBlockRows - 1) / kBlockRows));
+  dkdv_kernel<kCap><<<g1, kThreads, kSmem, stream>>>(m[0], m[1], m[2], m[3], a, stats,
+                                                            rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g2(static_cast<unsigned>(a.B * a.H), static_cast<unsigned>(rows / kBlockRows));
+  dq_kernel<kCap><<<g2, kThreads, kSmem, stream>>>(m[4], m[5], m[6], m[7], a, stats, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The statistics, then both passes: the eight tensor maps (128-byte
+// swizzled 64-column boxes; the block's tiles 128 rows, the ring's 64), the
+// dK/dV pass and the dQ pass. `stats` is the caller's float32 scratch of
+// [B, H, stat_rows(Sq), 2]. Returns 0, a CUDA error, or minus the driver's
+// CUresult when a map cannot be encoded.
+int launch(const BwdArgs& a, float2* stats, cudaStream_t stream) {
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  struct Src {
+    const void* p;
+    int S, heads;
+    long long sb, ss, sh;
+  };
+  const Src k{a.k, a.Skv, a.KV, a.k_sb, a.k_ss, a.k_sh}, v{a.v, a.Skv, a.KV, a.v_sb, a.v_ss, a.v_sh};
+  const Src q{a.q, a.Sq, a.H, a.q_sb, a.q_ss, a.q_sh}, d{a.dout, a.Sq, a.H, a.d_sb, a.d_ss, a.d_sh};
+  // dK/dV pass: K, V (the block's), Q, dO (the ring's); dQ pass: Q, dO, K, V
+  const Src order[8] = {k, v, q, d, q, d, k, v};
+  CUtensorMap m[8];
+  for (int i = 0; i < 8; ++i) {
+    const Src& t = order[i];
+    const int rows = i % 4 < 2 ? kBlockRows : kLoopRows;
+    const int r = encode_map(&m[i], bf16, 2, t.p, a.B, t.S, t.heads, 64, t.sb, t.ss, t.sh, 64,
+                             rows, sw);
+    if (r != 0) return -r;
+  }
+  return a.softcap > 0.f ? launch_passes<true>(m, a, stats, stream)
+                         : launch_passes<false>(m, a, stats, stream);
 }
 
 }  // namespace tc
@@ -719,11 +895,13 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 // CUDA device `device`: dq [B, Sq, H, hd], dk and dv [B, Skv, KV, hd]
 // (contiguous, allocated by the caller) from dout, q, k, v, o (strided, the
 // head dim contiguous), the forward's lse [B, H, Sq] and a float32 scratch
-// delta [B, H, Sq]. variant 1 is the tensor-core kernel (bf16, hd 64; the
-// base addresses and strides must be multiples of 16 bytes), 0 the
-// CUDA-core kernel (dtype 0 float32, 1 bfloat16). Returns
-// cudaGetLastError() after the launches (0 on success); the kernels run
-// asynchronously and a fault shows at the next synchronization.
+// delta. variant 1 is the tensor-core kernel (bf16, hd 64; the base
+// addresses and strides of dout, q, k, v and o must be multiples of 16
+// bytes; delta holds [B, H, Sq rounded up to 128, 2]), 0 the CUDA-core
+// kernel (dtype 0 float32, 1 bfloat16; delta holds [B, H, Sq]). Returns 0,
+// cudaGetLastError() after a refused launch, or minus the driver's CUresult
+// when a tensor map cannot be encoded; the kernels run asynchronously and a
+// fault shows at the next synchronization.
 extern "C" int flash_attention_bwd_launch(
     int variant, int dtype, const void* dout, const void* q, const void* k, const void* v,
     const void* o, const float* lse, float* delta, void* dq, void* dk, void* dv, long long d_sb,
@@ -742,6 +920,7 @@ extern "C" int flash_attention_bwd_launch(
             d_sh, B,    Sq,   Skv,  H,    KV,   H / KV, hd,  causal, window, q_offset,
             scale, softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) return tc::launch(a, reinterpret_cast<float2*>(delta), s);
   const long long rows = static_cast<long long>(B) * Sq * H;
   const unsigned blocks = static_cast<unsigned>((rows + 7) / 8);
   if (dtype == 0)
@@ -752,7 +931,6 @@ extern "C" int flash_attention_bwd_launch(
     return (int)cudaErrorInvalidValue;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (variant == 1) return tc::launch(a, s);
   if (dtype == 0) return cc::dispatch<float>(a, s);
   return cc::dispatch<__nv_bfloat16>(a, s);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
 // TMA tensor loads and host-side tensor-map encoding of a [B, S, heads, hd]
-// tensor. Included by flash_attention.cu and decode_attention.cu, each built
-// into its own library (the build hashes this header with each source).
+// tensor. Included by flash_attention.cu, flash_attention_bwd.cu and
+// decode_attention.cu, each built into its own library (the build hashes
+// this header with each source); wgmma.cuh holds the warpgroup products.
 
 #pragma once
 
@@ -57,6 +58,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a bulk copy of `bytes` (a multiple of 16) from global `src` to shared `dst`
+// (both 16-byte aligned), completing its bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

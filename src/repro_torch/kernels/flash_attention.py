@@ -16,8 +16,8 @@ Training adds the gradient. :class:`FlashAttention` is a
 ``torch.autograd.Function`` whose forward is :func:`flash_attention_lse`,
 the same kernel launched so that it also writes each row's float32
 log-sum-exp [B, H, Sq], and whose backward is :func:`flash_attention_bwd`,
-the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (tensor cores for
-bf16 at hd 64, CUDA cores otherwise: :func:`bwd_variant`); each counts its
+the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (wgmma fed by TMA
+for bf16 at hd 64, CUDA cores otherwise: :func:`bwd_variant`); each counts its
 launches the same way. On CPU tensors the Function runs the plain versions,
 :func:`flash_attention_lse_plain` and :func:`flash_attention_bwd_plain` (the
 gradient from its explicit formulas), and counts nothing.
@@ -298,11 +298,12 @@ _BWD_ARGS = ([ctypes.c_int] * 2                      # variant, dtype
              + [ctypes.c_float] * 2                  # scale, softcap
              + [ctypes.c_int, ctypes.c_void_p])      # device, stream
 BWD_VARIANTS = {"cuda_core": 0, "tensor_core": 1}
+BWD_BLOCK_ROWS = 128  # rows (keys, or queries) a block of the tensor-core backward owns
 
 
 def bwd_variant(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernel a CUDA call runs: ``"tensor_core"`` (mma.sync)
-    for bf16 at hd 64, the head dim of the trained models; ``"cuda_core"``
+    """The backward kernel a CUDA call runs: ``"tensor_core"`` (wgmma fed
+    by TMA) for bf16 at hd 64, the head dim of the trained models; ``"cuda_core"``
     (float32 fmaf) for float32, whose 2e-5 contract TF32 would break, and
     for bf16 at every other head dim. A static choice between two
     hand-written kernels, not a fallback."""
@@ -336,13 +337,22 @@ def flash_attention_bwd(do, q, k, v, o, lse, *, causal: bool = True, window: int
                          f"{tuple(lse.shape)} on {lse.device}")
     variant = bwd_variant(q.dtype, hd)
     if variant == "tensor_core":
-        for name, t in (("do", do), ("q", q), ("k", k), ("v", v), ("o", o)):
-            check_aligned(fn, name, "the tensor-core kernel's 16-byte loads",
+        for name, t in (("do", do), ("q", q), ("k", k), ("v", v)):
+            check_aligned(fn, name, "the tensor-core kernel's TMA load",
                           t.stride(), t.element_size(), t.data_ptr())
-    dq = torch.zeros_like(q, memory_format=torch.contiguous_format)
-    dk = torch.zeros((B, Skv, KV, hd), dtype=k.dtype, device=k.device)
-    dv = torch.zeros_like(dk)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        check_aligned(fn, "o", "the tensor-core kernel's 16-byte loads", o.stride(),
+                      o.element_size(), o.data_ptr())
+    # the kernels write every entry of each gradient, but launch nothing
+    # when Sq or Skv is 0: zeros then
+    new = torch.empty if Sq and Skv else torch.zeros
+    dq = new((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = new((B, Skv, KV, hd), dtype=k.dtype, device=k.device)
+    dv = new((B, Skv, KV, hd), dtype=v.dtype, device=v.device)
+    # scratch: D = rowsum(dO * O) [B, H, Sq]; the tensor-core kernel's
+    # (lse log2(e), D) pairs [B, H, Sq rounded up to a block, 2] instead
+    rows = -(-Sq // BWD_BLOCK_ROWS) * BWD_BLOCK_ROWS
+    delta = torch.empty((B, H, rows, 2) if variant == "tensor_core" else (B, H, Sq),
+                        dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd")
     entry = lib.flash_attention_bwd_launch
     if entry.argtypes is None:
@@ -356,7 +366,9 @@ def flash_attention_bwd(do, q, k, v, o, lse, *, causal: bool = True, window: int
                 float(softcap), q.device.index,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn} {variant} kernel launch failed: CUDA error {err} "
+        what = (f"tensor map encoding failed: CUresult {-err}" if err < 0
+                else f"CUDA error {err}")
+        raise RuntimeError(f"{fn} {variant} kernel launch failed: {what} "
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_variant[variant] += 1

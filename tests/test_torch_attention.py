@@ -39,7 +39,7 @@ from repro_torch.kernels import decode_attention
 from repro_torch.kernels.decode_attention import (
     SPLIT_GRAIN, decode_attention_plain, split_plan)
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, check_aligned, flash_attention_plain, kernel_variant)
+    HEAD_DIMS, bwd_variant, check_aligned, flash_attention_plain, kernel_variant)
 
 
 def _inputs(seed, shapes, dtype):
@@ -168,6 +168,17 @@ def test_decode_kernel_variant_choice(dtype, hd):
     want = ("tensor_core" if dtype == torch.bfloat16 and hd in (64, 128)
             else "cuda_core")
     assert decode_attention.kernel_variant(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_bwd_kernel_variant_choice(dtype, hd):
+    """The backward keeps its own choice: the tensor-core backward (wgmma
+    fed by TMA) for bf16 at hd 64 only, the head dim of the trained models
+    (roberta-large, llama3.2-1b); float32 (TF32 would break its 2e-5
+    contract) and bf16 at every other head dim on the CUDA cores."""
+    want = "tensor_core" if dtype == torch.bfloat16 and hd == 64 else "cuda_core"
+    assert bwd_variant(dtype, hd) == want
 
 
 @pytest.mark.parametrize("dtype,tol", [(jnp.bfloat16, 3e-2), (jnp.float32, 2e-5)])

@@ -53,9 +53,11 @@ from repro_torch.models import model
 
 ATTN_RTOL = 1e-5
 
-# (B, Sq, Skv, H, KV, hd, causal, window, softcap); q_offset = Skv - Sq, the
-# reference's alignment; Sq > Skv with causal leaves the first Sq - Skv
-# query rows without a key
+# (B, Sq, Skv, H, KV, hd, causal, window, softcap[, q_offset]); q_offset
+# defaults to Skv - Sq, the reference's alignment; Sq > Skv with causal
+# leaves the first Sq - Skv query rows without a key. Another q_offset X <
+# Skv - Sq runs the reference with Skv - Sq - X query rows appended (their
+# dO zero, so they add nothing to dK and dV): its row i then sits at X + i.
 GRAD_CASES = [
     (2, 24, 24, 4, 2, 16, True, 0, 0.0),      # causal GQA
     (2, 24, 24, 4, 4, 16, False, 0, 0.0),     # bidirectional (the encoder)
@@ -65,6 +67,14 @@ GRAD_CASES = [
     (2, 20, 28, 4, 2, 16, True, 0, 0.0),      # q_offset 8 (Sq < Skv)
     (2, 12, 28, 4, 2, 16, False, 0, 0.0),     # cross attention, Sq != Skv
     (2, 20, 16, 4, 2, 16, True, 0, 0.0),      # 4 rows with no key
+    # the geometry of the tensor-core backward's tiles (128-row blocks,
+    # 64-row loop tiles) at hd 64: sizes off the 64- and 128-row grids, a
+    # causal diagonal off the reference's alignment, G = 8, window 128
+    (1, 200, 200, 8, 1, 64, True, 0, 0.0, -70),     # diagonal at -70: 70 rows with no key
+    (1, 130, 261, 4, 2, 64, True, 0, 0.0, 0),       # diagonal at 0 with Skv > Sq
+    (1, 300, 300, 4, 2, 64, True, 128, 0.0),        # window 128 on a tile border
+    (1, 257, 190, 8, 1, 64, False, 0, 0.0),         # bidirectional, G = 8, ragged
+    (1, 150, 270, 8, 1, 64, True, 128, 30.0, 60),   # G = 8, window, softcap, q_offset 60
 ]
 
 
@@ -83,13 +93,20 @@ def _max_rel(got, want):
 
 @pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_attention_gradient_matches_jax_grad(case):
-    B, Sq, Skv, H, KV, hd, causal, window, softcap = case
+    B, Sq, Skv, H, KV, hd, causal, window, softcap = case[:9]
+    q_offset = case[9] if len(case) > 9 else Skv - Sq
     q, k, v, do = _grad_inputs(B, Sq, Skv, H, KV, hd)
-    empty = max(0, Sq - Skv) if causal else 0  # rows with no key
+    empty = min(Sq, max(0, -q_offset)) if causal else 0  # rows with no key
     do[:, :empty] = 0.0
-    want = jax.grad(lambda q, k, v: jnp.sum(mha_reference(
-        q, k, v, causal=causal, window=window, softcap=softcap) * do), argnums=(0, 1, 2))(q, k, v)
-    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=Skv - Sq)
+    pad = Skv - Sq - q_offset  # query rows appended for the reference
+    assert pad >= 0
+
+    def reference(q, k, v):
+        qp = jnp.concatenate([q, jnp.zeros((B, pad, H, hd), q.dtype)], axis=1)
+        return mha_reference(qp, k, v, causal=causal, window=window, softcap=softcap)[:, :Sq]
+
+    want = jax.grad(lambda q, k, v: jnp.sum(reference(q, k, v) * do), argnums=(0, 1, 2))(q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     o = ops.flash_attention(tq, tk, tv, **kw)  # grad enabled: the Function
     (o * torch.from_numpy(do)).sum().backward()
