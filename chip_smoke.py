@@ -71,7 +71,14 @@ kernels:
   autograd of the plain attention (and failing with the backward zeroed);
   roberta-large at full width and depth, B 32 x S 2048, through the
   launcher's supervisor with a checkpoint and an injected crash replayed to
-  the clean state; llama3.2-1b at B 8 x S 1024.
+  the clean state; llama3.2-1b at B 8 x S 1024;
+* the dry run (phase l, ``launch/dryrun.py``, CPU work on ``meta``
+  tensors): the two training steps of phase (k) on a 1 x 1 layout, their
+  predicted bytes a device beside the step's own ``max_memory_allocated``
+  and the H100 roofline's bound beside the measured step and its MFU; then
+  the production grid of both layouts (16 x 16 and 2 x 16 x 16) but its two
+  slowest train cells, each cell traced or skipped with the shape table's
+  reason, the records in ``out/dryrun_l.jsonl``.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -2831,6 +2838,24 @@ def step_split(cfg, opt, state, batch) -> dict:
     return {"forward_s": t1 - t0, "backward_s": t2 - t1, "optimizer_s": t3 - t2}
 
 
+def step_peak_start() -> tuple:
+    """Before one train step: (the allocator's peak so far, the bytes
+    allocated after a garbage collection, the bytes that collection freed),
+    and the peak reset, so that the step's own peak reads as
+    ``max_memory_allocated`` after it. Without the collection, unreachable
+    tensors of earlier work could be freed during the step, at a moment
+    the peak would not show."""
+    import gc
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak, held, before - held
+
+
 def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
     """The training main path at full width and depth through the
     launcher's ``run`` (its supervisor, pipeline and checkpoints), random
@@ -2868,13 +2893,18 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         history = []
         for i in range(steps):
             batch = device_put_batch(pipeline.batch_at(i), dev)
+            if i == steps - 1:  # the last step's own peak, for phase (l)
+                run_peak, held, freed = step_peak_start()
             t1 = time.perf_counter()
             state, m = step(state, batch)
             m = {k: float(v) for k, v in m.items()}
             history.append({"step": i, "dt": time.perf_counter() - t1, **m})
+        step_peak = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if arch == "roberta-large":
+        run_peak = torch.cuda.max_memory_allocated()
+    peak_gb = max(run_peak, torch.cuda.max_memory_allocated()) / 1e9
     n = train_counts()
     per_layer = _attn_layers(cfg)
     if n != {"forward": 2 * per_layer * steps, "backward": per_layer * steps, "serving_flash": 0}:
@@ -2910,13 +2940,16 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         del faulty
         opt = make_optimizer(cfg.optimizer)
         batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(B, S)).batch_at(0), dev)
+        _, held, freed = step_peak_start()
         out["split"] = step_split(cfg, opt, state, batch)
+        step_peak = torch.cuda.max_memory_allocated()
         sp = out["split"]
         extra = (f"; crash before step run {TRAIN_FAIL_AT}: restored the step-2 checkpoint, "
                  f"step runs {replayed}, final state within {gap:.3e} of the clean run's "
                  f"(atol {REPLAY_ATOL}), every step run's loss "
                  f"{'equal to' if same_loss else 'NOT bit-equal to'} the clean run's; one step split: forward {sp['forward_s']:.4f} s, backward "
                  f"{sp['backward_s']:.4f} s, optimizer {sp['optimizer_s']:.4f} s")
+    out.update(step_peak_bytes=step_peak, step_held_bytes=held, step_gc_freed_bytes=freed)
     say(f"(k) training {arch} full width ({cfg.num_layers} layers, {out['params'] / 1e6:.1f}M "
         f"params, {cfg.optimizer}, B {B} x S {S}, {steps} steps"
         f"{' under TrainSupervisor' if arch == 'roberta-large' else ''}): median "
@@ -2954,6 +2987,123 @@ def training(dev) -> dict:
                                  "forward_bound_ms", "forward_bound_by", "split_ms")},
             "llama": {**timing["llama"], "max_abs_err": errs["llama"]["max_abs_err"]},
             "trained": trained, "bf16_train_step_gate": gate}
+
+
+# (l) the dry run: the cells whose train_4k trace takes longest (tens of
+# seconds on a CPU core: kimi-k2's 384 experts, jamba's 9 groups of 8
+# blocks) are left to the CLI (``python -m repro_torch.launch.dryrun --arch
+# all``), which runs every cell of both layouts
+DRYRUN_CLI_ONLY = {("kimi-k2-1t-a32b", "train_4k"), ("jamba-1.5-large-398b", "train_4k")}
+DRYRUN_GAP_GATE = 0.10  # trace vs allocator, either way
+DRYRUN_FLOPS_RATIO = (0.75, 1.35)  # traced over analytic FLOPs, every traced cell
+DRYRUN_OUT = os.path.join("out", "dryrun_l.jsonl")
+
+
+def dry_run(dev, trained: dict) -> dict:
+    """Phase (l). The dry run (``launch/dryrun.py``) of the two training
+    steps of phase (k) on the card's own 1 x 1 layout at their batch and
+    sequence, traced as every deep cell of the grid is (at 2 and 3 layer
+    groups, extrapolated to the model's depth): the predicted bytes beside
+    the step's own
+    ``max_memory_allocated`` (the peak reset just before it), and the H100
+    roofline's bound beside the step's seconds and its achieved MFU. Then
+    ``run_cell`` over the production grid of both layouts (every assigned
+    arch x shape but :data:`DRYRUN_CLI_ONLY`): each applicable cell traces,
+    each skipped one gives the shape table's reason, and the records go to
+    :data:`DRYRUN_OUT`."""
+    import torch
+    from repro_torch.configs import assigned_archs, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import SHAPES_BY_NAME, ShapeConfig, shape_applicable
+    from repro_torch.parallel.roofline import H100
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    tag = f"[total_memory {total} B]"
+    calib = {}
+    for arch, t in trained.items():
+        B, S = t["batch"], t["seq"]
+        rec = run_cell(arch, "", False, verbose=False, mesh=make_local_mesh(1, 1),
+                       shape=ShapeConfig(f"train_b{B}_s{S}", S, B, "train"))
+        roof = rec["roofline"]
+        pred, meas = rec["bytes_per_device"], t["step_peak_bytes"]
+        gap = pred / meas - 1.0
+        mfu = roof["model_flops_global"] / t["step_s"] / H100.peak_flops
+        calib[arch] = {"predicted_bytes": pred, "measured_peak_bytes": meas,
+                       "held_before_step_bytes": t["step_held_bytes"],
+                       "gc_freed_bytes": t["step_gc_freed_bytes"], "gap": gap,
+                       "arg_bytes": rec["arg_bytes"], "temp_bytes": rec["temp_bytes"],
+                       "out_bytes": rec["out_bytes"], "t_bound_s": max(
+                           roof["t_compute_s"], roof["t_memory_s"], roof["t_collective_s"]),
+                       "bottleneck": roof["bottleneck"], "mfu_bound": roof["mfu_bound"],
+                       "step_s": t["step_s"], "achieved_mfu": mfu,
+                       "traced_over_analytic": rec["traced_over_analytic"],
+                       "trace_s": rec["compile_s"] + rec["compile_unrolled_s"],
+                       "extrapolated": rec["compile_unrolled_s"] > 0}
+        c = calib[arch]
+        how = "2 and 3 layer groups traced, extrapolated" if c["extrapolated"] else \
+            "every layer traced"
+        say(f"(l) dry run {arch} train B {B} x S {S} on a 1 x 1 layout ({how}, "
+            f"{c['trace_s']:.1f} s): predicted {pred / 1e9:.3f} GB a device (arguments "
+            f"{c['arg_bytes'] / 1e9:.3f}, temp {c['temp_bytes'] / 1e9:.3f}, outputs "
+            f"{c['out_bytes'] / 1e9:.3f}) against the step's max_memory_allocated "
+            f"{meas / 1e9:.3f} GB ({t['step_held_bytes'] / 1e9:.3f} GB held before it, after a "
+            f"garbage collection that freed {t['step_gc_freed_bytes'] / 1e9:.3f} GB): "
+            f"gap {gap * 100:+.2f} %; roofline t_bound {c['t_bound_s']:.4f} s "
+            f"({c['bottleneck']}), mfu_bound {c['mfu_bound']:.3f}, against "
+            f"{t['step_s']:.4f} s a step measured: achieved MFU {mfu:.4f} "
+            f"({roof['model_flops_global']:.4e} model FLOPs at {H100.peak_flops:.3e} "
+            f"FLOP/s); traced / analytic FLOPs {c['traced_over_analytic']:.4f} {tag}")
+        if abs(gap) > DRYRUN_GAP_GATE:
+            raise AssertionError(f"(l) {arch}: predicted {pred} B, measured {meas} B")
+
+    os.makedirs(os.path.dirname(DRYRUN_OUT), exist_ok=True)
+    grid = {}
+    t1 = time.perf_counter()
+    with open(DRYRUN_OUT, "w") as f:
+        for multi_pod in (False, True):
+            for arch in assigned_archs():
+                for name, shape in SHAPES_BY_NAME.items():
+                    if (arch, name) in DRYRUN_CLI_ONLY:
+                        continue
+                    rec = run_cell(arch, name, multi_pod, verbose=False)
+                    f.write(json.dumps(rec) + "\n")
+                    ok, why = shape_applicable(get_config(arch), shape)
+                    if rec["status"] != ("ok" if ok else "skipped") or (
+                            not ok and rec["reason"] != why):
+                        raise AssertionError(f"(l) {arch} x {name}: {rec}")
+                    if ok:
+                        r = rec["traced_over_analytic"]
+                        if not DRYRUN_FLOPS_RATIO[0] <= r <= DRYRUN_FLOPS_RATIO[1]:
+                            raise AssertionError(f"(l) {arch} x {name} [{rec['mesh']}]: "
+                                                 f"traced / analytic FLOPs {r}")
+                    grid.setdefault(rec["mesh"], []).append(rec)
+    grid_s = time.perf_counter() - t1
+    summary = {}
+    for mesh, recs in grid.items():
+        ran = [r for r in recs if r["status"] == "ok"]
+        bottlenecks = {}
+        for r in ran:
+            b = r["roofline"]["bottleneck"]
+            bottlenecks[b] = bottlenecks.get(b, 0) + 1
+        summary[mesh] = {"cells": len(ran), "skipped": len(recs) - len(ran),
+                         "fit": sum(r["fits_hbm"] is True for r in ran),
+                         "bottlenecks": bottlenecks,
+                         "not_fitting": [f"{r['arch']} x {r['shape']}" for r in ran
+                                         if r["fits_hbm"] is False],
+                         "unresolved": [f"{r['arch']} x {r['shape']}" for r in ran
+                                        if r["fits_hbm"] is None]}
+        m = summary[mesh]
+        say(f"(l) dry-run grid {mesh}: {m['cells']} cells traced, {m['skipped']} skipped "
+            f"(the shape table's reasons), {m['fit']} fit {H100.hbm_bytes / 1e9:.0f} GB a "
+            f"device; bottlenecks {bottlenecks}; not fitting: "
+            f"{', '.join(m['not_fitting']) or 'none'}; unresolved (over "
+            f"{H100.hbm_bytes / 1e9:.0f} GB with the trace's temp an upper bound): "
+            f"{', '.join(m['unresolved']) or 'none'} {tag}")
+    say(f"(l) dry run: grid {grid_s:.2f} s, phase total {time.perf_counter() - t0:.2f} s "
+        f"(records in {DRYRUN_OUT}; {sorted(DRYRUN_CLI_ONLY)} by the CLI)")
+    return {"calibration": calib, "grid": summary}
 
 
 def main() -> int:
@@ -3198,6 +3348,10 @@ def main() -> int:
     # 8. (k) training: the backward kernel, the train step of every arch card
     # vs CPU, the bf16 gate, roberta-large and llama3.2-1b at full width
     train_row = training(dev)
+
+    # 9. (l) the dry run: the two training steps' predicted bytes and
+    # roofline against the card, then the production grid
+    dry_run(dev, train_row["trained"])
 
     kernels = [{
         "name": "polca_tick",

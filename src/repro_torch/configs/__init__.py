@@ -25,8 +25,15 @@ the serving path runs each of them:
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch.models.config import ModelConfig
+
+# the ten assigned architectures of the dry run's grid, in the JAX
+# package's order
+ASSIGNED = ("whisper-base", "mixtral-8x7b", "kimi-k2-1t-a32b", "internvl2-1b",
+            "llama3.2-1b", "gemma2-9b", "yi-34b", "qwen3-8b", "mamba2-370m",
+            "jamba-1.5-large-398b")
 
 ALL = {
     "bloom-176b": "bloom_176b",
@@ -60,3 +67,9 @@ def get_config(name: str) -> ModelConfig:
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(name).SMOKE
+
+
+def assigned_archs() -> List[str]:
+    """The architectures of the dry run's grid (:data:`ASSIGNED`); the rest
+    of the registry are the paper's own workloads."""
+    return list(ASSIGNED)

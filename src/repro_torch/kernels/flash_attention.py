@@ -20,7 +20,9 @@ the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (wgmma fed by TMA
 for bf16 at hd 64, CUDA cores otherwise: :func:`bwd_variant`); each counts its
 launches the same way. On CPU tensors the Function runs the plain versions,
 :func:`flash_attention_lse_plain` and :func:`flash_attention_bwd_plain` (the
-gradient from its explicit formulas), and counts nothing.
+gradient from its explicit formulas), and counts nothing. On ``meta``
+tensors (the dry run's trace) it calls the kernels' traceable ops
+(:mod:`repro_torch.kernels.traced`).
 
 The function is the Pallas kernel's: grouped-query heads (query head h reads
 KV head h // G), scale hd^-1/2, optional tanh logit softcap, causal masking
@@ -40,6 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import traced as _traced
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -388,8 +391,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         opts = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
-        cpu = q.device.type == "cpu"
-        o, lse = (flash_attention_lse_plain if cpu else flash_attention_lse)(q, k, v, **opts)
+        if q.device.type == "meta":
+            o, lse = _traced.flash_attention_lse(q, k, v, *_op_args(opts))
+        else:
+            cpu = q.device.type == "cpu"
+            o, lse = (flash_attention_lse_plain if cpu else flash_attention_lse)(q, k, v,
+                                                                                 **opts)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = opts
         return o
@@ -397,6 +404,15 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
-        dq, dk, dv = bwd(do.contiguous(), q, k, v, o, lse, **ctx.opts)
+        if q.device.type == "meta":
+            dq, dk, dv = _traced.flash_attention_bwd(do.contiguous(), q, k, v, o, lse,
+                                                     *_op_args(ctx.opts))
+        else:
+            bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
+            dq, dk, dv = bwd(do.contiguous(), q, k, v, o, lse, **ctx.opts)
         return dq, dk, dv, None, None, None, None
+
+
+def _op_args(opts: dict) -> tuple:
+    return (bool(opts["causal"]), int(opts["window"]), float(opts["softcap"]),
+            int(opts["q_offset"]))

@@ -2,7 +2,10 @@
 
 Each wrapper dispatches on the device of its input: a CUDA tensor launches
 the hand-written kernel (or raises), a CPU tensor takes the kernel's plain
-PyTorch version. There is no fallback from one to the other.
+PyTorch version. There is no fallback from one to the other. A ``meta``
+tensor (the dry run's data-less trace) takes the kernel's traceable op of
+:mod:`repro_torch.kernels.traced`: the kernel's outputs and flop count,
+nothing launched.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tick as _tick
+from repro_torch.kernels import traced as _traced
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
@@ -24,6 +28,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
     ``csrc/flash_attention_bwd.cu`` (the plain gradient on CPU tensors)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _fa.FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
+    if q.device.type == "meta":
+        return _traced.flash_attention(q, k, v, bool(causal), int(window), float(softcap),
+                                       int(q_offset))
     fn = _fa.flash_attention_plain if q.device.type == "cpu" else _fa.flash_attention
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
@@ -34,6 +41,8 @@ def decode_attention(q, k, v, valid_len, *, softcap=0.0):
     below the host int ``valid_len`` attend: ``csrc/decode_attention.cu`` on
     CUDA tensors, :func:`~repro_torch.kernels.decode_attention.
     decode_attention_plain` on CPU tensors."""
+    if q.device.type == "meta":
+        return _traced.decode_attention(q, k, v, int(valid_len), float(softcap))
     fn = _dec.decode_attention_plain if q.device.type == "cpu" else _dec.decode_attention
     return fn(q, k, v, valid_len, softcap=softcap)
 

@@ -1,10 +1,13 @@
 """Model/architecture configuration (PyTorch port of ``repro.models.config``).
 
-Every architecture is an instance of ``ModelConfig``. Two parts of the port
-read it: the power plane (``parallel.analytic.step_cost`` turns a config into
-the FLOPs/bytes behind ``core.workload``'s phase timings) and the serving
-stack (``models.model`` builds parameters, caches and the forward passes
-from it). The dtype fields are ``torch.dtype`` values.
+Every architecture is an instance of ``ModelConfig``. Three parts of the
+port read it: the power plane (``parallel.analytic.step_cost`` turns a
+config into the FLOPs/bytes behind ``core.workload``'s phase timings), the
+model stack (``models.model`` builds parameters, caches and the forward
+passes from it) and the dry run (``launch.dryrun``), which walks the shape
+table below: every ``ShapeConfig`` of :data:`ALL_SHAPES` that
+:func:`shape_applicable` admits for an architecture. The dtype fields are
+``torch.dtype`` values.
 """
 
 from __future__ import annotations
@@ -147,6 +150,23 @@ class ModelConfig:
         return self.family == "encoder"
 
     @property
+    def attention_free(self) -> bool:
+        return all(k == MAMBA for k in self.pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when decode-time context cost is bounded (SSM/SWA-only/hybrid-light)."""
+        kinds = set(self.pattern)
+        if kinds == {MAMBA}:
+            return True
+        if ATTN not in kinds:  # only LOCAL (+ MAMBA)
+            return True
+        # hybrid: bounded number of global-attention layers per group is still
+        # linear in context, but the *memory* is dominated by a handful of
+        # layers; we follow the assignment and run hybrids.
+        return MAMBA in kinds
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return self.dtype
 
@@ -237,3 +257,23 @@ class ShapeConfig:
     def is_decode(self) -> bool:
         return self.kind == "decode"
 
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, per the assignment rules."""
+    if shape.is_decode and cfg.is_encoder_only:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full-attention arch: 500k dense-attention decode is the "
+            "quadratic regime excluded by the assignment (see DESIGN.md)"
+        )
+    return True, ""

@@ -76,9 +76,11 @@ def _is_moe_block(cfg: ModelConfig, idx: int, kind: str) -> bool:
     return idx % cfg.moe_layer_period == cfg.moe_layer_period - 1
 
 
-def block_specs(cfg: ModelConfig, idx: int, kind: str, *, cross: bool = False) -> dict:
+def block_specs(cfg: ModelConfig, idx: int, kind: str, moe_shards: int = 1, *,
+                cross: bool = False) -> dict:
     """Block ``idx`` of the pattern, of kind ``kind``; with ``cross``, an
-    attention block also carries the cross-attention weights."""
+    attention block also carries the cross-attention weights. An MoE
+    block's expert weights have ``moe_layout(cfg, moe_shards)``'s slots."""
     D = cfg.d_model
     p: Dict[str, Any] = {}
     if kind == MAMBA:
@@ -95,7 +97,7 @@ def block_specs(cfg: ModelConfig, idx: int, kind: str, *, cross: bool = False) -
     if _has_ffn(cfg, kind):
         p["ln_mlp"] = rmsnorm_spec(D)
         if _is_moe_block(cfg, idx, kind):
-            p["moe"] = moe_mod.moe_specs(cfg, 1)
+            p["moe"] = moe_mod.moe_specs(cfg, moe_shards)
             if cfg.moe_shared_expert_ff:
                 p["shared_mlp"] = mlp_specs(cfg, cfg.moe_shared_expert_ff)
         else:
@@ -111,8 +113,13 @@ def _stack_specs(tree, n: int):
                             s.scale, s.dtype), tree)
 
 
-def model_specs(cfg: ModelConfig) -> dict:
-    """Full abstract parameter tree."""
+def model_specs(cfg: ModelConfig, n_model: int = 1, moe_shards: int = 0) -> dict:
+    """Full abstract parameter tree. ``moe_shards``: size of the expert-
+    parallel domain (defaults to the model axis, ``n_model``; the
+    token-routed serve path uses data x model). The defaults are one
+    device's tree, whose expert weights have ``E`` slots: the tree the port
+    serves and trains; a mesh's sizes give the tree the dry run lays out."""
+    moe_shards = moe_shards or n_model
     D, V = cfg.d_model, cfg.vocab_size
     wd = cfg.weight_dtype
     specs: Dict[str, Any] = {
@@ -121,11 +128,12 @@ def model_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings and not cfg.is_encoder_only:
         specs["unembed"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)
-    group = {f"b{i}": block_specs(cfg, i, kind, cross=cfg.is_encoder_decoder)
+    group = {f"b{i}": block_specs(cfg, i, kind, moe_shards, cross=cfg.is_encoder_decoder)
              for i, kind in enumerate(cfg.pattern)}
     specs["decoder"] = _stack_specs(group, cfg.num_groups)
     if cfg.is_encoder_decoder:
-        specs["encoder"] = _stack_specs(block_specs(cfg, 0, ATTN), cfg.num_encoder_layers)
+        specs["encoder"] = _stack_specs(block_specs(cfg, 0, ATTN, moe_shards),
+                                        cfg.num_encoder_layers)
         specs["enc_norm"] = rmsnorm_spec(D)
     if cfg.is_encoder_only:
         specs["mlm_head"] = ParamSpec((D, V), ("embed", "vocab"), dtype=wd)

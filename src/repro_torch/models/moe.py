@@ -88,11 +88,16 @@ def dispatch(cfg: ModelConfig, topi) -> Tuple[torch.Tensor, List[int]]:
     rows kept, sorted by expert id (stable, so by token within an expert);
     the group sizes, one a expert, are read to the host: the one
     device-to-host read of an MoE block, which sizes the per-expert
-    products."""
+    products. A ``meta`` tensor (the dry run's data-less trace) has no
+    sizes to read: there the kept rows are spread evenly over the experts,
+    the static split of the reference's capacity-sized buffers."""
     T, k = topi.shape
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sel = order[:_capacity(T * k, 1, cfg.moe_capacity_factor)]
+    if topi.device.type == "meta":
+        n, E = sel.shape[0], cfg.moe_num_experts
+        return sel, [n // E + (e < n % E) for e in range(E)]
     sizes = torch.bincount(flat_e[sel], minlength=cfg.moe_num_experts)
     return sel, sizes.tolist()
 

@@ -37,14 +37,16 @@ def tree_leaves(tree):
 def tree_unflatten(like, leaves):
     """A tree of ``like``'s layout holding ``leaves`` (in :func:`tree_leaves`'
     order)."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(like)
+def _unflatten(like, it):
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle, and its cell would keep ``leaves`` (a step's
+    # gradients, say) alive until Python's cycle collector ran
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], it) for k in sorted(like)}
+    return next(it)
 
 
 def global_norm(tree) -> torch.Tensor:

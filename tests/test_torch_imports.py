@@ -21,9 +21,14 @@
   ``ops.flash_attention`` on CPU tensors runs the training forward's and the
   backward's plain versions without touching theirs; their wrappers refuse
   CPU tensors too.
+* On ``meta`` tensors the attention wrappers and the training Function
+  take the kernels' traceable ops (``kernels/traced.py``) without touching
+  the launch counters.
 * The training modules (``optim``, ``data``, ``checkpoint``, ``runtime``,
-  ``launch/train.py``) are scanned like the rest, and ``launch.train``
-  raises without a card unless ``--device cpu`` is given.
+  ``launch/train.py``) and the dry run's (``launch/{dryrun,mesh}.py``,
+  ``parallel/roofline.py``, ``kernels/traced.py``) are scanned like the
+  rest, and ``launch.train`` raises without a card unless ``--device cpu``
+  is given.
 * ``chip_smoke.py`` holds the kernels against their plain versions on the
   kernel test shapes of ``tests/test_kernels.py``.
 """
@@ -180,6 +185,27 @@ def test_cpu_training_attention_takes_plain_versions_without_launching():
         fa.flash_attention_bwd.launches == 0
 
 
+def test_meta_attention_takes_traced_ops_without_launching():
+    """On ``meta`` tensors (the dry run's trace) the attention wrappers and
+    the training Function call the traceable ops of ``kernels/traced.py``:
+    outputs of the kernels' shapes, no launch counted, no plain scores."""
+    fa = flash_attention
+    for fn in (fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd,
+               decode_attention.decode_attention):
+        fn.launches = 0
+    q = torch.empty(2, 16, 4, 8, device="meta", requires_grad=True)
+    k = torch.empty(2, 16, 2, 8, device="meta", requires_grad=True)
+    o = ops.flash_attention(q, k, k)
+    dq, dk = torch.autograd.grad(o.sum(), [q, k])
+    with torch.no_grad():
+        outs = [ops.flash_attention(q, k, k), ops.decode_attention(q[:, 0], k, k, 9)]
+    assert [t.shape for t in (o, dq, dk, *outs)] == [q.shape, q.shape, k.shape, q.shape,
+                                                     q[:, 0].shape]
+    assert all(t.device.type == "meta" for t in (o, dq, dk, *outs))
+    assert fa.flash_attention.launches == fa.flash_attention_lse.launches == \
+        fa.flash_attention_bwd.launches == decode_attention.decode_attention.launches == 0
+
+
 def test_train_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = ["--arch", "llama3.2-1b", "--smoke", "--steps", "2", "--batch", "2", "--seq",
@@ -256,7 +282,11 @@ def test_copied_numpy_modules_are_scanned():
             "src/repro_torch/data/pipeline.py",
             "src/repro_torch/checkpoint/checkpointer.py",
             "src/repro_torch/runtime/fault_tolerance.py",
-            "src/repro_torch/launch/train.py"} <= rel
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/parallel/roofline.py",
+            "src/repro_torch/kernels/traced.py"} <= rel
 
 
 def test_jax_scenario_with_hierarchy_and_faults_loads():
