@@ -397,7 +397,8 @@ def reset_counts() -> None:
     from repro_torch.kernels import decode_attention, flash_attention, tick
     tick.polca_tick_loop.launches = 0
     wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_lse,
-                flash_attention.flash_attention_bwd, decode_attention.decode_attention)
+                flash_attention.flash_attention_bwd, decode_attention.decode_attention,
+                decode_attention.decode_attention_lse)
     for fn in wrappers:
         fn.launches = 0
         for variant in fn.launches_by_variant:
@@ -1197,7 +1198,7 @@ _FLEX = {}  # the compiled flex_attention, made on first use
 
 
 def flex_library(softcap: float, *, window: int = 0, valid_len=None, Sq: int, Skv: int,
-                 dev):
+                 dev, lse: bool = False):
     """PyTorch's one call for attention with a logit softcap, which
     scaled_dot_product_attention lacks, or with a sliding window that skips
     the blocks outside it: ``flex_attention`` compiled (its documented
@@ -1205,7 +1206,9 @@ def flex_library(softcap: float, *, window: int = 0, valid_len=None, Sq: int, Sk
     block mask of the causal window (prefill, ``valid_len`` None) or of the
     first ``valid_len`` keys (decode, ``Sq`` = 1). Returns ``fn(q, k, v)``
     on ``[B, heads, seq, hd]`` tensors (GQA by ``enable_gqa``); the default
-    scale is the kernels' ``hd ** -0.5``. A yardstick the port never calls."""
+    scale is the kernels' ``hd ** -0.5``. With ``lse`` it returns (out, the
+    rows' natural log-sum-exp [B, heads, seq] in float32). A yardstick the
+    port never calls."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
     if "fn" not in _FLEX:
@@ -1224,8 +1227,21 @@ def flex_library(softcap: float, *, window: int = 0, valid_len=None, Sq: int, Sk
         def mask_mod(b, h, qi, kv):
             return kv < valid_len
     block_mask = create_block_mask(mask_mod, None, None, Sq, Skv, device=dev)
-    return lambda q, k, v: _FLEX["fn"](q, k, v, score_mod=score_mod,
-                                       block_mask=block_mask, enable_gqa=True)
+    if not lse:
+        return lambda q, k, v: _FLEX["fn"](q, k, v, score_mod=score_mod,
+                                           block_mask=block_mask, enable_gqa=True)
+    try:
+        from torch.nn.attention.flex_attention import AuxRequest
+        aux = {"return_aux": AuxRequest(lse=True)}
+    except ImportError:  # a torch before AuxRequest
+        aux = {"return_lse": True}
+
+    def with_lse(q, k, v):
+        o, extra = _FLEX["fn"](q, k, v, score_mod=score_mod, block_mask=block_mask,
+                               enable_gqa=True, **aux)
+        return o, getattr(extra, "lse", extra)
+
+    return with_lse
 
 
 def library_rows(row: dict, softcap: float, sdpa_ms: float, flex_ms, flex_err) -> str:
@@ -2703,7 +2719,7 @@ def smoke_train_steps(dev) -> None:
             if arch in TRAIN_CONDITIONED:
                 condition_attention(cfg, cpu["params"])
             batch = SyntheticTokenPipeline(cfg, DataConfig(2, 32)).batch_at(0)
-            step = build_train_step(cfg, opt)
+            step = build_train_step(cfg, None, None, opt)
             reset_counts()
             card, m_card = step(to(cpu, dev), device_put_batch(batch, dev))
             torch.cuda.synchronize()
@@ -2785,7 +2801,7 @@ def bf16_gate(dev, arch: str, S: int) -> dict:
     state = init_state(cfg, opt, dev, seed=0)
     condition_attention(cfg, state["params"])
     batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(2, S)).batch_at(0), dev)
-    step = build_train_step(cfg, opt)
+    step = build_train_step(cfg, None, None, opt)
     reset_counts()
     kern, km = step(state, batch)
     n = train_counts()
@@ -2889,7 +2905,7 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         opt = make_optimizer(cfg.optimizer)
         state = train.init_state(cfg, opt, dev, seed=0)
         pipeline = SyntheticTokenPipeline(cfg, DataConfig(B, S))
-        step = build_train_step(cfg, opt)
+        step = build_train_step(cfg, None, None, opt)
         history = []
         for i in range(steps):
             batch = device_put_batch(pipeline.batch_at(i), dev)
@@ -3104,6 +3120,306 @@ def dry_run(dev, trained: dict) -> dict:
     say(f"(l) dry run: grid {grid_s:.2f} s, phase total {time.perf_counter() - t0:.2f} s "
         f"(records in {DRYRUN_OUT}; {sorted(DRYRUN_CLI_ONLY)} by the CLI)")
     return {"calibration": calib, "grid": summary}
+
+
+# (m) the sharded step on the card: a 1 x 1 DeviceMesh over NCCL. The card
+# has one GPU and NCCL puts no two ranks on one device, so the sharded code
+# path is proven here to launch the hand kernels, compute what the plain
+# step computes, and cost no more; the sharded numbers themselves are held
+# to JAX on the CPU (tests/test_torch_sharded.py). (arch, B, S) of the
+# training steps, as phase (k) trains them
+SHARDED_TRAIN = {"llama3.2-1b": (8, 1024), "roberta-large": (32, 2048)}
+SHARDED_TURNS, SHARDED_STEPS = 3, 3  # alternating turns of steps, each way
+SHARDED_TRAIN_GATE = 1.10  # the sharded step's median time over the plain one's
+# (arch, layers served (None: all), requests, prompt tokens, new tokens);
+# kimi-k2 decodes token-routed (its decode rules)
+SHARDED_SERVE = [("llama3.2-1b", None, 8, 1024, 128), ("kimi-k2-1t-a32b", 1, 8, 1024, 32)]
+SHARDED_DECODE_GATE = 1.20  # the sharded engine's decode ms a step over the plain one's
+# the decode timing: SHARDED_TIME_STEPS decode steps each way, the two
+# engines' steps alternating one by one (ServeEngine.stream, each step timed
+# alone between synchronizations; plain first on even steps, sharded first
+# on odd ones; a new stream, after a prefill that is not timed, whenever the
+# cache is full); the gate reads the medians
+SHARDED_TIME_STEPS = 96
+# decode_attention_lse against its plain version: the main-path decode shape
+# (B 8, cache_len(1152) = 1536 slots, llama's 32/8 heads, hd 64), no valid
+# slot, a slice starting mid-cache (slots 768.. of the same cache, 332 of
+# them valid), hd 128 and hd 96: (B, T, H, KV, hd, valid_len, slot offset)
+LSE_CASES = [(8, 1536, 32, 8, 64, 1100, 0), (8, 1536, 32, 8, 64, 0, 0),
+             (8, 1536, 32, 8, 64, 332, 768), (8, 1536, 32, 8, 128, 1100, 0),
+             (4, 1024, 16, 4, 96, 700, 0)]
+
+
+def check_decode_lse(dev) -> dict:
+    """decode_attention_lse against its plain version at LSE_CASES (the
+    output within the bf16 attention tolerance, the log-sum-exp within
+    LSE_TOL; no valid slot: 0 and -inf on both), the merge of the main-path
+    cache's two halves by their log-sum-exps against the whole cache's
+    decode kernel, and its timing at the main-path shape beside the plain
+    version and decode_attention's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    rng = np.random.default_rng(11)
+    err = 0.0
+    for B, T, H, KV, hd, vl, off in LSE_CASES:
+        q = randn(rng, (B, H, hd), "bfloat16", dev)
+        k, v = (randn(rng, (B, off + T, KV, hd), "bfloat16", dev)[:, off:] for _ in range(2))
+        label = f"(m) decode_attention_lse B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl}"
+        (o, lse), (po, plse) = (dec.decode_attention_lse(q, k, v, vl),
+                                dec.decode_attention_lse_plain(q, k, v, vl))
+        torch.cuda.synchronize()
+        if vl == 0:
+            if not ((o == 0).all() and torch.isneginf(lse).all() and torch.isneginf(plse).all()):
+                raise AssertionError(f"{label}: not 0 and -inf")
+            continue
+        err = max(err, compare_close(o, po, ATTN_TOL["bfloat16"], label))
+        gap = float((lse - plse).abs().max())
+        if not gap <= LSE_TOL:
+            raise AssertionError(f"{label}: log-sum-exp gap {gap:.3e} > {LSE_TOL}")
+    B, T, H, KV, hd, vl, _ = LSE_CASES[0]
+    sets = [tuple(randn(rng, s, "bfloat16", dev) for s in ((B, H, hd), (B, T, KV, hd),
+                                                            (B, T, KV, hd)))
+            for _ in range(DECODE_SETS)]
+    q, k, v = sets[0]
+    half = T // 2
+    parts = [dec.decode_attention_lse(q, k[:, a:a + half], v[:, a:a + half],
+                                      min(max(vl - a, 0), half)) for a in (0, half)]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(lse - m)[..., None] for _, lse in parts]
+    merged = (sum(wi * o.float() for wi, (o, _) in zip(w, parts)) / sum(w)).to(q.dtype)
+    merge_err = compare_close(merged, dec.decode_attention(q, k, v, vl), ATTN_TOL["bfloat16"],
+                              "(m) two cache halves merged by log-sum-exp vs the whole cache")
+    # the library call: flex_attention with the valid-length block mask and
+    # its log-sum-exp, held against the plain version as the kernel is
+    po, plse = dec.decode_attention_lse_plain(q, k, v, vl)
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+    flex = flex_library(0.0, valid_len=vl, Sq=1, Skv=T, dev=dev, lse=True)
+    fo, flse = flex(*lib_sets[0])
+    flex_err = compare_close(fo[:, :, 0], po, ATTN_TOL["bfloat16"],
+                             "(m) flex_attention with its log-sum-exp at the main-path decode")
+    flex_lse_gap = float((flse[:, :, 0].float() - plse).abs().max())
+    if not flex_lse_gap <= LSE_TOL:
+        raise AssertionError(f"(m) flex_attention's log-sum-exp gap {flex_lse_gap:.3e} > "
+                             f"{LSE_TOL}")
+    row = dict(
+        ms=device_ms([lambda s=s: dec.decode_attention_lse(*s, vl) for s in sets], calls=64),
+        decode_ms=device_ms([lambda s=s: dec.decode_attention(*s, vl) for s in sets],
+                            calls=64),
+        plain_ms=device_ms([lambda s=s: dec.decode_attention_lse_plain(*s, vl)
+                            for s in sets], calls=8),
+        library_ms=device_ms([lambda s=s: flex(*s) for s in lib_sets], calls=64),
+        max_abs_err=err, merge_err=merge_err, library_err=flex_err,
+        library_lse_gap=flex_lse_gap)
+    nbytes = 2 * (2 * B * vl * KV * hd + 2 * B * H * hd) + 4 * B * H  # + the lse
+    row["bound_ms"], row["bound_by"] = bound_ms(4 * B * H * hd * vl, nbytes)
+    say(f"(m) kernel decode_attention_lse B={B} T={T} H={H} KV={KV} hd={hd} valid_len={vl} "
+        f"bf16: device {row['ms']:.5f} ms (decode_attention {row['decode_ms']:.5f} ms, plain "
+        f"version {row['plain_ms']:.5f} ms, flex_attention with its log-sum-exp "
+        f"{row['library_ms']:.5f} ms (gap {flex_err:.3e}, lse {flex_lse_gap:.3e}); bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']}); {len(LSE_CASES)} shapes against "
+        f"the plain version: max abs gap "
+        f"{err:.3e}, lse within {LSE_TOL}; two halves merged vs the whole cache "
+        f"{merge_err:.3e}")
+    return row
+
+
+def sharded_train(dev, mesh, arch: str) -> dict:
+    """One arch's training step at full width, plain and over the 1 x 1
+    mesh, from one state (the sharded state wraps the plain state's
+    tensors): SHARDED_TURNS turns of SHARDED_STEPS steps each way, plain
+    first, on the same batches. The first turns' losses, grad norms, new
+    states and kernel launches must be equal; the median step time over
+    the turns is gated at SHARDED_TRAIN_GATE x the plain step's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.launch.inputs import make_rules
+    from repro_torch.launch.mesh import layout_of
+    from repro_torch.launch.steps import build_train_step, init_state, state_specs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.param import distribute
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
+    B, S = SHARDED_TRAIN[arch]
+    cfg = get_config(arch)
+    opt = make_optimizer(cfg.optimizer)
+    rules = make_rules(cfg, ShapeConfig("t", S, B, "train"), layout_of(mesh))
+    state = init_state(cfg, opt, dev, seed=0)
+    specs = state_specs(cfg, mesh, rules, opt)
+    wrapped = {k: tree_unflatten(state[k], [distribute(x, sp, mesh) for x, sp in zip(
+        tree_leaves(state[k]), tree_leaves(specs[k]))]) for k in state}
+    pipeline = SyntheticTokenPipeline(cfg, DataConfig(B, S))
+    batches = [pipeline.batch_at(i) for i in range(SHARDED_STEPS)]
+    ways = {"plain": (build_train_step(cfg, None, None, opt), state,
+                      [device_put_batch(b, dev) for b in batches]),
+            "sharded": (build_train_step(cfg, mesh, rules, opt), wrapped,
+                        [device_put_batch(b, dev, mesh, rules) for b in batches])}
+    del state, wrapped  # the ways hold the first state until their first step
+    times = {way: [] for way in ways}
+    first = {}
+    for turn in range(SHARDED_TURNS):
+        for way in list(ways):
+            step, st, placed = ways[way]
+            ways[way] = None  # each old state goes as soon as its step has run
+            reset_counts()
+            metrics = []
+            for b in placed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+                times[way].append(time.perf_counter() - t0)
+            ways[way] = (step, st, placed)
+            if turn == 0:
+                first[way] = (metrics, train_counts())
+        if turn == 0:  # both ways took the same steps from the same state
+            gap = max(float((a.float() - b.to_local().float()).abs().max()) for a, b in zip(
+                tree_leaves(ways["plain"][1]), tree_leaves(ways["sharded"][1])))
+            (pm, pc), (sm, sc) = first["plain"], first["sharded"]
+            if pm != sm or gap != 0.0:
+                raise AssertionError(f"(m) {arch}: the 1 x 1 sharded steps differ from the "
+                                     f"plain steps: {sm} vs {pm}, state gap {gap:.3e}")
+            if pc != sc:
+                raise AssertionError(f"(m) {arch}: kernel launches {sc} vs the plain "
+                                     f"steps' {pc}")
+    med = {way: sorted(t)[len(t) // 2] for way, t in times.items()}
+    ratio = med["sharded"] / med["plain"]
+    say(f"(m) training {arch} B {B} x S {S} on a 1 x 1 DeviceMesh (NCCL): {SHARDED_STEPS} "
+        f"steps' losses, grad norms and states equal to the plain steps' (loss "
+        f"{' -> '.join('%.6f' % x['loss'] for x in sm)}), kernel launches {sc}; median "
+        f"step {med['sharded']:.4f} s vs plain {med['plain']:.4f} s over {SHARDED_TURNS} "
+        f"alternating turns of {SHARDED_STEPS}: ratio {ratio:.4f}")
+    if ratio > SHARDED_TRAIN_GATE:
+        raise AssertionError(f"(m) {arch}: sharded step {ratio:.4f} x the plain step's "
+                             f"> {SHARDED_TRAIN_GATE}")
+    del ways, first
+    torch.cuda.empty_cache()
+    return {"batch": B, "seq": S, "step_s": med["sharded"], "plain_step_s": med["plain"],
+            "ratio": ratio, "launches": sc}
+
+
+def quartiles(xs) -> str:
+    """The lower and upper quartiles of ``xs``, as 'q1-q3'."""
+    import statistics
+    q = statistics.quantiles(xs, n=4)
+    return f"{q[0]:.3f}-{q[2]:.3f}"
+
+
+def sharded_serve(dev, mesh, arch: str, layers, B: int, S: int, n_out: int) -> dict:
+    """The sharded ServeEngine over the 1 x 1 mesh against the plain engine
+    on the same weights (drawn once): identical tokens over ``n_out`` new
+    tokens, every decode launch through decode_attention_lse (none through
+    decode_attention), then the decode ms of SHARDED_TIME_STEPS steps of
+    each, alternating step by step, the sharded one's median gated at
+    SHARDED_DECODE_GATE x the plain one's."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.launch.steps import to_local
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    sharded = ServeEngine(cfg, S + n_out, B, device=dev, mesh=mesh)
+    plain = ServeEngine(cfg, S + n_out, B, device=dev, params=to_local(sharded.params))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S))
+    reset_counts()
+    want = plain.generate(toks, n_out)
+    plain_launches = counts()["decode_attention"]
+    reset_counts()
+    got = sharded.generate(toks, n_out)
+    lse_launches = dec.decode_attention_lse.launches
+    if not np.array_equal(got, want):
+        raise AssertionError(f"(m) {arch}: the sharded engine's tokens differ from the "
+                             f"plain engine's at {int((got != want).sum())} places")
+    if counts()["decode_attention"] or lse_launches != plain_launches:
+        raise AssertionError(f"(m) {arch}: sharded decode launched decode_attention "
+                             f"{counts()['decode_attention']} and decode_attention_lse "
+                             f"{lse_launches} times; the plain engine {plain_launches}")
+
+    engines = {"plain": plain, "sharded": sharded}
+    ms = {way: [] for way in engines}
+    while len(ms["plain"]) < SHARDED_TIME_STEPS:
+        n = min(n_out, SHARDED_TIME_STEPS - len(ms["plain"]))
+        streams = {way: eng.stream(toks, n) for way, eng in engines.items()}
+        for it in streams.values():
+            next(it)  # the prefill and its token
+        for _ in range(n):  # each next token runs one decode step
+            for way in (("plain", "sharded") if len(ms["plain"]) % 2 == 0
+                        else ("sharded", "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                next(streams[way], None)
+                torch.cuda.synchronize()
+                ms[way].append((time.perf_counter() - t0) * 1e3)
+        del streams
+    med = {way: statistics.median(v) for way, v in ms.items()}
+    ratio = med["sharded"] / med["plain"]
+    say(f"(m) serving {arch} ({cfg.num_layers} layers) {B} x {S} + {n_out} on a 1 x 1 "
+        f"DeviceMesh: tokens identical to the plain engine's, {lse_launches} decode launches "
+        f"all through decode_attention_lse; median decode {med['sharded']:.3f} ms a step vs "
+        f"plain {med['plain']:.3f} ms over {SHARDED_TIME_STEPS} steps each way, alternating "
+        f"step by step (quartiles sharded {quartiles(ms['sharded'])}, plain "
+        f"{quartiles(ms['plain'])}): ratio {ratio:.4f}")
+    if ratio > SHARDED_DECODE_GATE:
+        raise AssertionError(f"(m) {arch}: sharded decode {ratio:.4f} x the plain one's > "
+                             f"{SHARDED_DECODE_GATE}")
+    del sharded, plain
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "decode_ms": med["sharded"],
+            "plain_decode_ms": med["plain"], "ratio": ratio, "lse_launches": lse_launches}
+
+
+def sharded_step(dev) -> dict:
+    """Phase (m): a 1 x 1 DeviceMesh over NCCL (a world of one process),
+    decode_attention_lse against its plain version, the sharded training
+    steps of SHARDED_TRAIN and the sharded engines of SHARDED_SERVE against
+    the plain ones, and the collectives one sharded step issues (none on
+    one rank: every group has one member). Returns the kernels-line row of
+    decode_attention_lse."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.launch.inputs import make_rules
+    from repro_torch.launch.mesh import layout_of, make_device_mesh
+    from repro_torch.launch.steps import build_train_step, init_state
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.collectives import CollectiveCounter
+    t0 = time.perf_counter()
+    mesh = make_device_mesh(1, 1, "cuda")
+    try:
+        row = check_decode_lse(dev)
+        trained = {arch: sharded_train(dev, mesh, arch) for arch in SHARDED_TRAIN}
+        served = {arch: sharded_serve(dev, mesh, arch, layers, B, S, n)
+                  for arch, layers, B, S, n in SHARDED_SERVE}
+        cfg = get_config("llama3.2-1b").replace(num_layers=2)
+        opt = make_optimizer(cfg.optimizer)
+        rules = make_rules(cfg, ShapeConfig("t", 1024, 8, "train"), layout_of(mesh))
+        batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(8, 1024)).batch_at(0),
+                                 dev, mesh, rules)
+        with CollectiveCounter() as counter:
+            build_train_step(cfg, mesh, rules, opt)(
+                init_state(cfg, opt, dev, mesh=mesh, rules=rules), batch)
+        comm = {str(k): v for k, v in counter.get_comm_counts().items()}
+        say(f"(m) CommDebugMode of one sharded llama3.2-1b train step (2 layers) on the "
+            f"1 x 1 mesh: {comm or 'no collective'} (every group has one rank)")
+    finally:
+        dist.destroy_process_group()
+    say(f"(m) the sharded step on the card: phase total {time.perf_counter() - t0:.2f} s")
+    return {"name": "decode_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:28",
+            "launches": served["llama3.2-1b"]["lse_launches"],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_err", "library_lse_gap",
+                                   "decode_ms", "merge_err")},
+            "trained": trained, "served": served, "comm_counts": comm}
 
 
 def main() -> int:
@@ -3353,6 +3669,9 @@ def main() -> int:
     # roofline against the card, then the production grid
     dry_run(dev, train_row["trained"])
 
+    # 10. (m) the sharded step on a 1 x 1 DeviceMesh over NCCL
+    lse_row = sharded_step(dev)
+
     kernels = [{
         "name": "polca_tick",
         "route": "cuda",
@@ -3380,6 +3699,7 @@ def main() -> int:
                                    for arch, v in served.items()},
                         **{k: v for k, v in row.items() if isinstance(v, dict)}})
     kernels.append(train_row)
+    kernels.append(lse_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,13 @@ The keys are the reference's ``_flatten`` paths (``params/decoder/b0/attn/
 wq``, ``opt/count``). numpy has no bf16 without ``ml_dtypes``, so a bf16
 leaf is stored as its uint16 bit pattern under ``<key>@bfloat16`` and
 restored bit for bit; every other leaf is stored as its numpy array.
+
+A sharded state (DTensor leaves over a ``DeviceMesh``) is saved whole, as
+the reference saves its global arrays: every rank gathers each leaf and
+rank 0 writes the file, then the ranks meet at a barrier. ``restore``
+places each leaf into its template's layout: a DTensor template's
+placements on its mesh (each rank keeps its block), a plain tensor's
+device.
 """
 
 from __future__ import annotations
@@ -38,8 +45,17 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return {prefix: tree}
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(x: torch.Tensor) -> Tuple[str, np.ndarray]:
-    """(key suffix, array): a bf16 tensor as its uint16 bits."""
+    """(key suffix, array): a bf16 tensor as its uint16 bits; a DTensor
+    gathered whole."""
+    if _is_dtensor(x):
+        from repro_torch.parallel.collectives import full_tensor
+        x = full_tensor(x)
     x = torch.as_tensor(x).detach().cpu()
     if x.dtype == torch.bfloat16:
         return BF16_TAG, x.view(torch.int16).numpy().view(np.uint16)
@@ -52,21 +68,32 @@ def save(ckpt_dir: str, step: int, state: Any, *, keep: int = 3) -> str:
     path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = {}
-    for key, leaf in _flatten(state).items():
+    leaves = _flatten(state)
+    for key, leaf in leaves.items():
         tag, arr = _to_numpy(leaf)
         flat[key + tag] = arr
     flat["__step__"] = np.asarray(step, np.int64)
+    final = os.path.join(ckpt_dir, f"step_{step}.npz")
+    if any(_is_dtensor(x) for x in leaves.values()):
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, flat, keep)
+        dist.barrier()
+        return final
+    _write(ckpt_dir, final, flat, keep)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, flat: dict, keep: int) -> None:
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, **flat)
-        final = os.path.join(ckpt_dir, f"step_{step}.npz")
         os.replace(tmp, final)  # atomic
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -89,10 +116,27 @@ def list_steps(ckpt_dir: str):
     return sorted(out)
 
 
+def place_like(x: torch.Tensor, tmpl) -> Any:
+    """A whole tensor ``x`` in the layout of the template leaf ``tmpl``: a
+    DTensor's placements on its mesh (this rank's block), an abstract
+    ``Sharded`` leaf's spec on its ``DeviceMesh``, or a tensor's device;
+    in the template's dtype."""
+    from repro_torch.models.param import Sharded, distribute, spec_of
+    if _is_dtensor(tmpl):
+        mesh = tmpl.device_mesh
+        return distribute(x.to(device=mesh.device_type, dtype=tmpl.dtype),
+                          spec_of(tmpl), mesh)
+    if isinstance(tmpl, Sharded):
+        return distribute(x.to(device=tmpl.mesh.device_type, dtype=tmpl.dtype), tmpl.spec,
+                          tmpl.mesh)
+    tmpl = torch.as_tensor(tmpl)
+    return x.to(device=tmpl.device, dtype=tmpl.dtype)
+
+
 def restore(ckpt_dir: str, step: int, state_template: Any) -> Any:
     """The checkpoint of ``step`` in the template's structure, each leaf in
-    the template leaf's dtype and on its device. Raises if the file is
-    unreadable or a key is missing."""
+    the template leaf's dtype and layout (:func:`place_like`). Raises if
+    the file is unreadable or a key is missing."""
     path = os.path.join(ckpt_dir, f"step_{step}.npz")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
@@ -104,8 +148,7 @@ def restore(ckpt_dir: str, step: int, state_template: Any) -> Any:
             t = torch.from_numpy(flat[key + BF16_TAG].view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(flat[key])
-        tmpl = torch.as_tensor(tmpl)
-        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+        return place_like(t, tmpl)
 
     return load(state_template, "")
 

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.launch.inputs import split_seq
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import distribute, pspec
 
 
 @dataclass(frozen=True)
@@ -81,7 +82,14 @@ class SyntheticTokenPipeline:
             step += 1
 
 
-def device_put_batch(batch: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
-    """Place a host batch on ``device`` (the reference places it on the
-    mesh with the training shardings; the port trains on one device)."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def device_put_batch(batch: Dict[str, torch.Tensor], device, mesh=None,
+                     rules=None) -> Dict[str, torch.Tensor]:
+    """Place a host batch on ``device``; with a ``DeviceMesh`` and the
+    training ``rules``, as DTensors split over the rules' batch axes on
+    their first dim (the reference's ``device_put_batch``): each rank keeps
+    its rows of the same global batch."""
+    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    if mesh is None:
+        return out
+    return {k: distribute(v, pspec(rules.get("batch"), *([None] * (v.dim() - 1))), mesh)
+            for k, v in out.items()}

@@ -50,6 +50,9 @@
 // group) arrival counter; the last block to arrive combines the partials
 // (M = max m, L = sum l e^(m-M), o = sum acc e^(m-M) / L) in one pass,
 // writes o and resets the counter to 0 for the next call. One launch a call.
+// Given an lse pointer, the combining block also writes each row's float32
+// log-sum-exp, M + log L (-inf where no slot is valid), the statistic that
+// merges the outputs of a cache split over devices by sequence.
 // The cache is read through the strides of its native [B, T, KV, hd] layout
 // (no transposed copy); valid_len is a host integer, so a decode step needs
 // no device-to-host synchronisation.
@@ -133,6 +136,7 @@ struct DecodeArgs {
   void* o;
   float* part_acc;     // [B * KV, n_splits, G, hd]
   float* part_ml;      // [B * KV, n_splits, G, 2]
+  float* lse;          // [B, H] row log-sum-exps, or null
   unsigned* arrivals;  // [B * KV * n_groups], 0 between calls
   long long q_sb, q_sh;  // strides in elements; head_dim is contiguous
   long long o_sb, o_sh;
@@ -234,8 +238,11 @@ __device__ void finish(const DecodeArgs& a, const Chunk& c, const float* mrg) {
       A = A * f_old + acc * f;
       M = M_new;
     }
-    store(o + c.b * a.o_sb + (long long)(c.kvh * a.G + c.g0 + g) * a.o_sh + d,
-          A / (L == 0.f ? 1.f : L));
+    const int h = c.kvh * a.G + c.g0 + g;
+    store(o + c.b * a.o_sb + (long long)h * a.o_sh + d, A / (L == 0.f ? 1.f : L));
+    if (a.lse != nullptr && d == 0)
+      a.lse[(long long)c.b * a.KV * a.G + h] =
+          L == 0.f ? __int_as_float(0xff800000) : M + logf(L);  // -inf: no valid slot
   }
   if (tid == 0) *arrivals = 0u;  // ready for the next call
 }
@@ -708,14 +715,15 @@ int dispatch(const Cache& kv, DecodeArgs a, int B, int hd, cudaStream_t stream) 
 // cache's base addresses and strides are multiples of 16 bytes (TMA).
 // part_acc and part_ml are float32 scratch of B * KV * n_splits * G * hd and
 // * 2 elements; `arrivals` holds B * KV * ceil(G / 8) zeros and is left
-// zeroed. valid_len must be at most the cache length and n_splits *
+// zeroed. `lse`, when not null, receives the [B, H] contiguous float32 row
+// log-sum-exps. valid_len must be at most the cache length and n_splits *
 // split_len must cover it. Calls that share `arrivals` must run one at a
 // time (one stream). Returns cudaGetLastError() after the launch (0 on
 // success), or minus the driver's CUresult when a tensor map cannot be
 // encoded.
 extern "C" int decode_attention_launch(
     int dtype, int tensor_core, const void* q, const void* k, const void* v, void* o,
-    void* part_acc, void* part_ml, void* arrivals, long long q_sb, long long q_sh,
+    void* part_acc, void* part_ml, void* lse, void* arrivals, long long q_sb, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
     long long v_sh, long long o_sb, long long o_sh, int B, int H, int KV, int hd, int valid_len,
     int split_len, int n_splits, float scale, float softcap, int device, void* stream) {
@@ -730,7 +738,8 @@ extern "C" int decode_attention_launch(
   const int n_groups = (G + kMaxHeads - 1) / kMaxHeads;
   const int group = (G + n_groups - 1) / n_groups;
   const DecodeArgs a{q,     o,     static_cast<float*>(part_acc),
-                     static_cast<float*>(part_ml), static_cast<unsigned*>(arrivals),
+                     static_cast<float*>(part_ml), static_cast<float*>(lse),
+                     static_cast<unsigned*>(arrivals),
                      q_sb,  q_sh,  o_sb, o_sh, KV, G, group, n_groups, valid_len, split_len,
                      n_splits, 0, scale, softcap};
   const Cache kv{k, v, k_sb, k_st, k_sh, v_sb, v_st, v_sh};

@@ -15,6 +15,13 @@ together and an optional tanh logit softcap; the numerics are those of
   CUDA cores otherwise (:func:`kernel_variant`). One count in
   ``decode_attention.launches`` per call, and one in
   ``decode_attention.launches_by_variant``.
+* :func:`decode_attention_lse` is the same launch whose combining block
+  also writes each row's float32 log-sum-exp ([B, H]; -inf where no slot
+  is valid), so that the outputs over slices of a cache split by sequence
+  merge into the output over the whole (``models.attention.
+  merge_partials``); :func:`decode_attention_lse_plain` is its plain
+  version. Its launches are counted in ``decode_attention_lse.launches``
+  (and by variant), not in ``decode_attention``'s.
 
 The JAX module's docstring mentions a ``t_offset`` ring-buffer mode that its
 function does not have; neither does this port.
@@ -42,6 +49,15 @@ def decode_attention_plain(q, k, v, valid_len: int, *, softcap: float = 0.0):
     slots t < valid_len attend. Returns [B, H, hd]."""
     mask = (torch.arange(k.shape[1], device=q.device) < valid_len)[None, :]
     return _attend_plain(q[:, None], k, v, mask, softcap)[:, 0]
+
+
+def decode_attention_lse_plain(q, k, v, valid_len: int, *, softcap: float = 0.0):
+    """:func:`decode_attention_lse`'s plain version: (o [B, H, hd], lse
+    [B, H] float32), lse the log-sum-exp of each row's scaled, softcapped
+    scores over the valid slots (-inf with none, where o is 0)."""
+    mask = (torch.arange(k.shape[1], device=q.device) < valid_len)[None, :]
+    o, lse = _attend_plain(q[:, None], k, v, mask, softcap, with_lse=True)
+    return o[:, 0], lse.reshape(q.shape[:2])
 
 
 def kernel_variant(dtype: torch.dtype, hd: int) -> str:
@@ -91,7 +107,7 @@ def _arrivals(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _LIB_ARGTYPES = ([ctypes.c_int] * 2                       # dtype, tensor_core
-                 + [ctypes.c_void_p] * 7                  # q, k, v, o, scratch x3
+                 + [ctypes.c_void_p] * 8                  # q, k, v, o, scratch x2, lse, arrivals
                  + [ctypes.c_longlong] * 10               # q/k/v/o strides
                  + [ctypes.c_int] * 7                     # B H KV hd valid_len split_len n_splits
                  + [ctypes.c_float] * 2                   # scale, softcap
@@ -107,17 +123,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def decode_attention(q, k, v, valid_len: int, *, softcap: float = 0.0):
-    """Decode attention as one CUDA kernel launch on PyTorch's current
-    stream (no synchronisation). q: [B, H, hd]; k/v: [B, T, KV, hd],
-    float32 or bfloat16, read through their strides (16-byte aligned);
-    ``valid_len`` is a host int, clamped to [0, T]. Returns a new contiguous
-    [B, H, hd] tensor. Each stream has its own arrival counters, so calls
-    on different streams may overlap."""
-    check_attention_inputs("decode_attention", q, k, v, 3)
-    for name, t in (("k", k), ("v", v)):
-        check_aligned("decode_attention", name, "the kernel's TMA load",
-                      t.stride(), t.element_size(), t.data_ptr())
+def _launch(name: str, q, k, v, valid_len: int, softcap: float, lse):
+    """One launch of the decode kernel into a new [B, H, hd] output (and
+    ``lse`` [B, H] float32 when given); returns (o, variant)."""
+    check_attention_inputs(name, q, k, v, 3)
+    for arg, t in (("k", k), ("v", v)):
+        check_aligned(name, arg, "the kernel's TMA load", t.stride(), t.element_size(),
+                      t.data_ptr())
     B, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -135,13 +147,24 @@ def decode_attention(q, k, v, valid_len: int, *, softcap: float = 0.0):
     err = _lib().decode_attention_launch(
         DTYPES[q.dtype], int(variant == "tensor_core"), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        arrivals.data_ptr(), *strides, B, H, KV, hd, vl, sl, n_splits,
-        float(hd) ** -0.5, float(softcap), dev.index, stream)
+        None if lse is None else lse.data_ptr(), arrivals.data_ptr(), *strides, B, H, KV,
+        hd, vl, sl, n_splits, float(hd) ** -0.5, float(softcap), dev.index, stream)
     if err != 0:
         what = (f"tensor map encoding failed: CUresult {-err}" if err < 0
                 else f"CUDA error {err}")
-        raise RuntimeError(f"decode_attention {variant} kernel launch failed: {what} (q "
+        raise RuntimeError(f"{name} {variant} kernel launch failed: {what} (q "
                            f"{tuple(q.shape)}, k {tuple(k.shape)}, valid_len {vl}, {q.dtype})")
+    return o, variant
+
+
+def decode_attention(q, k, v, valid_len: int, *, softcap: float = 0.0):
+    """Decode attention as one CUDA kernel launch on PyTorch's current
+    stream (no synchronisation). q: [B, H, hd]; k/v: [B, T, KV, hd],
+    float32 or bfloat16, read through their strides (16-byte aligned);
+    ``valid_len`` is a host int, clamped to [0, T] (0: the output is 0).
+    Returns a new contiguous [B, H, hd] tensor. Each stream has its own
+    arrival counters, so calls on different streams may overlap."""
+    o, variant = _launch("decode_attention", q, k, v, valid_len, softcap, None)
     decode_attention.launches += 1
     decode_attention.launches_by_variant[variant] += 1
     return o
@@ -149,3 +172,18 @@ def decode_attention(q, k, v, valid_len: int, *, softcap: float = 0.0):
 
 decode_attention.launches = 0
 decode_attention.launches_by_variant = {"tensor_core": 0, "cuda_core": 0}
+
+
+def decode_attention_lse(q, k, v, valid_len: int, *, softcap: float = 0.0):
+    """:func:`decode_attention`'s launch that also writes each row's float32
+    log-sum-exp. Returns (o [B, H, hd], lse [B, H]); lse is -inf for a row
+    with no valid slot (``valid_len`` 0), whose output is 0."""
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    o, variant = _launch("decode_attention_lse", q, k, v, valid_len, softcap, lse)
+    decode_attention_lse.launches += 1
+    decode_attention_lse.launches_by_variant[variant] += 1
+    return o, lse
+
+
+decode_attention_lse.launches = 0
+decode_attention_lse.launches_by_variant = {"tensor_core": 0, "cuda_core": 0}

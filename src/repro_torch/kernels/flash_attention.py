@@ -65,20 +65,23 @@ def _scores_plain(q, k, softcap: float):
     return s
 
 
-def _attend_plain(q, k, v, mask, softcap: float):
+def _attend_plain(q, k, v, mask, softcap: float, with_lse: bool = False):
     """Masked grouped-query attention on full float32 scores.
 
     q: [B, Sq, H, hd]; k/v: [B, Skv, KV, hd]; mask: [Sq, Skv] bool (True
-    attends). Returns [B, Sq, H, hd] in q's dtype."""
+    attends). Returns [B, Sq, H, hd] in q's dtype; ``with_lse``: and each
+    row's float32 log-sum-exp [B, KV, G, Sq] (-inf for a row with no key)."""
     B, Sq, H, hd = q.shape
     s = torch.where(mask, _scores_plain(q, k, softcap), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * mask
     l = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l))[..., 0] if with_lse else None
     l = torch.where(l == 0.0, 1.0, l)
     pv = p.to(v.dtype).float()
     o = torch.einsum("bkgqt,btkd->bqkgd", pv, v.float()) / l.permute(0, 3, 1, 2, 4)
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    o = o.reshape(B, Sq, H, hd).to(q.dtype)
+    return (o, lse) if with_lse else o
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,

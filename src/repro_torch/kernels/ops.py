@@ -47,6 +47,18 @@ def decode_attention(q, k, v, valid_len, *, softcap=0.0):
     return fn(q, k, v, valid_len, softcap=softcap)
 
 
+def decode_attention_lse(q, k, v, valid_len, *, softcap=0.0):
+    """One-token decode attention and each row's float32 log-sum-exp (o
+    [B,H,hd], lse [B,H]; -inf where no slot is valid): the decode kernel's
+    launch that also writes the row statistics on CUDA tensors,
+    :func:`~repro_torch.kernels.decode_attention.decode_attention_lse_plain`
+    on CPU tensors. A cache split by sequence merges its slices' outputs by
+    these (``models.attention.merge_partials``)."""
+    fn = (_dec.decode_attention_lse_plain if q.device.type == "cpu"
+          else _dec.decode_attention_lse)
+    return fn(q, k, v, valid_len, softcap=softcap)
+
+
 def polca_tick(occ, bscale, row_budget, *, consts, oob_ticks, brake_ticks,
                ring_depth, esc):
     """Non-predictive POLCA tick loop (power fold + latch/ring update):

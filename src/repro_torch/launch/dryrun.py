@@ -39,8 +39,9 @@ from the layout and a data-less trace, on the CPU, allocating nothing:
    (the model axis), are ``hlo_flops_per_device`` beside the analytic
    ``flops_per_device``; ``hlo_bytes_per_device`` is the bytes every eager
    op of the trace reads and writes, spread the same way.
-3. **Collectives**, derived from the rules (real counts come when ROADMAP
-   Queue 1 item 4c runs the sharded step). Per step, a device runs:
+3. **Collectives**, derived from the rules (:func:`derive_collectives`;
+   :func:`count_collectives` counts those a real sharded step issues on a
+   ``DeviceMesh``). Per step, a device runs:
 
    * an all-gather of every weight stored split over the mesh on its
      d_model dim (``embed``, ``expert_embed``: FSDP and the MoE ZeRO
@@ -113,7 +114,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import assigned_archs, get_config
 from repro_torch.launch.inputs import (batch_shards, cache_input_specs, input_specs,
                                       make_rules, split_seq)
-from repro_torch.launch.mesh import MeshLayout, make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import MeshLayout, layout_of, make_local_mesh, make_production_mesh
 from repro_torch.launch.steps import (abstract_state, build_serve_step, loss_and_grads,
                                      model_param_specs)
 from repro_torch.models import model as model_mod
@@ -122,7 +123,8 @@ from repro_torch.models.config import (MAMBA, SHAPES_BY_NAME, ModelConfig, Shape
 from repro_torch.models.param import entry_axes, resolve_spec, shard_shape, sharded
 from repro_torch.obs.log import get_logger
 from repro_torch.optim import Optimizer
-from repro_torch.parallel.roofline import CollectiveStats, build_roofline
+from repro_torch.parallel.roofline import (CollectiveStats, build_roofline,
+                                          extrapolate_collectives)
 
 log = get_logger(__name__)
 
@@ -418,6 +420,75 @@ def derive_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, rules) -> Col
         st.add("all-reduce", 2 * B_l * S * 4, n, 2)
         st.add("all-reduce", B_l * S * D * act, n)
     return st
+
+
+def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int) -> CollectiveStats:
+    """One sharded step of the cell on ``mesh`` at the shape's size, from
+    seeded weights and tokens, under ``CollectiveCounter``: this rank's
+    collectives (decode: one step after the prefill's cache)."""
+    from repro_torch.launch.steps import (build_decode_step, build_prefill_step,
+                                          build_train_step, init_state)
+    from repro_torch.models.param import distribute, pspec
+    from repro_torch.parallel.collectives import CollectiveCounter
+
+    layout = layout_of(mesh)
+    dev = mesh.device_type
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+
+    def place(x, rules):
+        return distribute(x, pspec(rules.get("batch"), *([None] * (x.dim() - 1))), mesh)
+
+    if shape.kind == "train":
+        opt = Optimizer(cfg.optimizer)
+        rules = make_rules(cfg, shape, layout)
+        batch = {"tokens": tokens}
+        if cfg.is_encoder_only:
+            batch["targets"] = tokens.flip(1)
+        batch = {k: place(v, rules) for k, v in batch.items()}
+        step = build_train_step(cfg, mesh, rules, opt)
+        state = init_state(cfg, opt, dev, seed, mesh, rules)
+        with CollectiveCounter() as counter:
+            step(state, batch)
+        return counter.stats
+    prompt = ShapeConfig(shape.name, S, B, "prefill")
+    decode = ShapeConfig(shape.name, S + 1, B, "decode")
+    d_rules = make_rules(cfg, decode, layout)
+    rules = {**make_rules(cfg, prompt, layout), "kv_seq": d_rules["kv_seq"]}
+    params = init_state(cfg, None, dev, seed, mesh, rules)["params"]
+    with torch.no_grad(), CollectiveCounter() as counter:
+        _, cache = build_prefill_step(cfg, decode if shape.is_decode else prompt, mesh,
+                                      rules)(params, {"tokens": place(tokens, rules)})
+    if not shape.is_decode:
+        return counter.stats
+    params = init_state(cfg, None, dev, seed, mesh, d_rules)["params"]
+    with torch.no_grad(), CollectiveCounter() as counter:
+        build_decode_step(cfg, mesh, d_rules)(params, place(tokens[:, -1:], d_rules), S,
+                                              cache)
+    return counter.stats
+
+
+def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int = 0
+                      ) -> CollectiveStats:
+    """The collectives one sharded step of a cell issues on this rank of the
+    ``DeviceMesh`` ``mesh``, counted by ``CommDebugMode``
+    (``parallel.collectives.CollectiveCounter``) on a real step at the
+    shape's size, with its bytes by the ring formulas; every rank of the
+    mesh must call it. A model of more than two layer groups is counted at
+    one and two groups and extrapolated to its depth
+    (``extrapolate_collectives``), each group adding the same collectives.
+    A decode shape counts one decode step after a prefill of ``seq_len``
+    tokens. It needs a running process group, so the dry run's CLI (which
+    lays out meta tensors and starts none) does not call it: it serves the
+    port's sharded tests, which hold these counts to XLA's collectives and
+    to :func:`derive_collectives` on a (2, 4) gloo mesh."""
+    if cfg.num_groups <= 2:
+        return _count_step(cfg, shape, mesh, seed)
+    return extrapolate_collectives(_count_step(grouped(cfg, 1), shape, mesh, seed),
+                                   _count_step(grouped(cfg, 2), shape, mesh, seed),
+                                   cfg.num_groups)
 
 
 # ---------------------------------------------------------------------------

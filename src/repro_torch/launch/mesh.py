@@ -11,15 +11,30 @@ versions (``jax.set_mesh`` / ``use_mesh``, ``jax.shard_map`` /
 ``check_rep``) and have no counterpart: nothing here enters a mesh context
 or maps a function over shards. ``data_mesh`` (the batched engine's member
 axis) has none either; the port shards members over a list of devices
-(``provisioning.batched``). Running a step over a ``torch.distributed``
-``DeviceMesh`` is ROADMAP Queue 1 item 4c.
+(``provisioning.batched``).
+
+:func:`make_device_mesh` builds the ``torch.distributed`` ``DeviceMesh``
+a sharded step runs over (the counterpart of :func:`make_local_mesh` on
+real devices): axes ``("data", "model")``, NCCL on the card and gloo on
+the CPU, one process a rank. Under ``torchrun`` it joins the world the
+launcher set up (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``); alone it
+starts a world of one process. :func:`layout_of` is a ``DeviceMesh``'s
+:class:`MeshLayout`. The sharded step covers the archs whose blocks are
+plain self attention with a dense or MoE FFN; the others wait for ROADMAP
+Queue 1 item 4d.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import socket
 from dataclasses import dataclass
 from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -65,12 +80,60 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 0) -> MeshLayout:
     return MeshLayout(("data", "model"), (data, model))
 
 
-# ``mesh_axis_sizes`` and ``dp_axes`` have no caller in the port yet: they
-# are the reference's counterparts, held against them by the tests, for the
-# sharded step (ROADMAP Queue 1 item 4c).
-def mesh_axis_sizes(mesh: MeshLayout) -> dict:
-    return dict(mesh.shape)
+def layout_of(mesh) -> MeshLayout:
+    """The :class:`MeshLayout` of a ``DeviceMesh`` (its dim names and
+    sizes), or the layout itself."""
+    if isinstance(mesh, MeshLayout):
+        return mesh
+    return MeshLayout(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
 
 
-def dp_axes(mesh: MeshLayout) -> Tuple[str, ...]:
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+# ``mesh_axis_sizes`` and ``dp_axes`` are the reference's counterparts,
+# held against them by the tests. Neither package's steps call them: the
+# rules name their axes themselves and ``MeshCtx`` reads the mesh's sizes.
+def mesh_axis_sizes(mesh) -> dict:
+    """Axis name -> size of a ``DeviceMesh`` or a :class:`MeshLayout`."""
+    return dict(layout_of(mesh).shape)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in layout_of(mesh).axis_names else ("data",)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def make_device_mesh(data: int = 1, model: int = 1, device="cuda"):
+    """A ``DeviceMesh`` of ``data x model`` ranks, axes ``("data",
+    "model")``, over the process group that is running, or over a new one:
+    NCCL when ``device`` is the card (each rank on ``cuda:LOCAL_RANK``),
+    gloo on the CPU. Under ``torchrun`` the group is the launcher's world
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``); without it,
+    a world of one process on a free local port. Raises where the world's
+    size is not ``data * model`` or a running group has the other backend:
+    nothing falls back from one backend to the other."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world != data * model:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} ranks; the world "
+                         f"has {world}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    world_size=1, rank=0)
+    elif dist.get_backend() != backend:
+        raise RuntimeError(f"a {dist.get_backend()} process group is running; a mesh on "
+                           f"{dev.type} needs {backend}")
+    return init_device_mesh(dev.type, (data, model), mesh_dim_names=("data", "model"))

@@ -1,6 +1,6 @@
 """Training launcher: the train step under :class:`~repro_torch.runtime.
-fault_tolerance.TrainSupervisor` on one device (PyTorch port of
-``repro.launch.train``).
+fault_tolerance.TrainSupervisor` on one device or over a
+``torch.distributed`` mesh (PyTorch port of ``repro.launch.train``).
 
 Parameters are drawn from a seed on the device (the CUDA card unless
 ``--device cpu``), the data is the seeded synthetic pipeline, and the run
@@ -15,38 +15,40 @@ stderr through the shared logger.
       --batch 32 --seq 2048 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke \\
       --steps 60 --batch 8 --seq 64 --device cpu
+
+With ``--data-par``/``--model-par`` (or under ``torchrun``) the step runs
+over a ``data x model`` ``DeviceMesh``, one rank a process (NCCL on the
+card, gloo with ``--device cpu``), its state and batches DTensors laid out
+by the train rules (``make_rules``); the checkpoints hold whole arrays. An
+arch outside the sharded step's slice raises ``NotImplementedError``
+(ROADMAP Queue 1 item 4d) and never trains unsharded instead.
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --steps 4 --batch 8 --seq 64 --device cpu --data-par 2 --model-par 4
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
-
-import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.inputs import make_rules
+from repro_torch.launch.mesh import layout_of, make_device_mesh, make_local_mesh
+from repro_torch.launch.steps import build_train_step, init_state
 from repro_torch.models import model as model_mod
-from repro_torch.models.param import init_params
+from repro_torch.models.config import ShapeConfig
 from repro_torch.obs.log import get_logger
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime.fault_tolerance import FaultInjector, StragglerMonitor, TrainSupervisor
 
 log = get_logger(__name__)
-
-
-def init_state(cfg, opt, device, seed: int = 0) -> dict:
-    """``{"params", "opt"}``: parameters of the spec dtypes drawn from
-    ``seed`` on ``device``, and the optimizer's zero state."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    pspecs = model_mod.model_specs(cfg)
-    return {"params": init_params(pspecs, gen), "opt": init_params(opt.init_specs(pspecs), gen)}
 
 
 def _parser():
@@ -72,20 +74,22 @@ def run(argv=None):
     """Parse ``argv``, train, and return (final state, supervisor); the
     supervisor's ``history`` has one entry a step run."""
     args = _parser().parse_args(argv)
-    if args.model_par != 1 or args.data_par != 1:
-        raise NotImplementedError("--data-par/--model-par > 1: the port trains on one "
-                                  "device; tensor parallelism waits for ROADMAP Queue 1 "
-                                  "item 4c")
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = make_optimizer(cfg.optimizer)
-    state = init_state(cfg, opt, device)
+    mesh = rules = None
+    if args.data_par * args.model_par > 1 or "WORLD_SIZE" in os.environ:
+        layout = make_local_mesh(args.data_par, args.model_par)
+        rules = make_rules(cfg, ShapeConfig("cli_train", args.seq, args.batch, "train"), layout)
+        model_mod.check_sharded(cfg, model_mod.MeshCtx(layout, rules))
+        mesh = make_device_mesh(args.data_par, args.model_par, device)
+    state = init_state(cfg, opt, device, mesh=mesh, rules=rules)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    log.info(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={opt.name} "
-             f"device={device}")
+    where = f"mesh={layout_of(mesh).label}" if mesh is not None else f"device={device}"
+    log.info(f"arch={cfg.name} params={n_params / 1e6:.1f}M optimizer={opt.name} {where}")
 
     pipeline = SyntheticTokenPipeline(cfg, DataConfig(args.batch, args.seq))
-    train_step = build_train_step(cfg, opt)
+    train_step = build_train_step(cfg, mesh, rules, opt)
     faults = FaultInjector(args.fail_at)
 
     def step_fn(state, batch):
@@ -96,7 +100,7 @@ def run(argv=None):
                           ckpt_interval=args.ckpt_interval, straggler=StragglerMonitor())
     t0 = time.time()
     state, last = sup.run(state, args.steps,
-                          place_batch=lambda b: device_put_batch(b, device))
+                          place_batch=lambda b: device_put_batch(b, device, mesh, rules))
     dt = time.time() - t0
     losses = [h["loss"] for h in sup.history]
     step_s = statistics.median(h["dt"] for h in sup.history) if sup.history else 0.0

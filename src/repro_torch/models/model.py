@@ -40,13 +40,44 @@ once: causal for decoders, bidirectional for an encoder-only model, each
 layer's body recomputed in the backward pass per ``cfg.remat_policy``
 (:func:`_remat`), with the flash kernel's gradient kernel
 (``ops.flash_attention`` under grad) as every attention's backward.
+
+**Sharded steps.** Given a :class:`MeshCtx` (a ``DeviceMesh`` and the
+rules), :func:`loss_fn`, :func:`prefill_fn` and :func:`decode_fn` run on
+each rank's local blocks, as the reference's ``shard_map``s run on theirs,
+with the exchanges the layout implies (``parallel.collectives``):
+
+* a weight stored split on its d_model dim (``embed``, ``expert_embed``:
+  FSDP, the MoE ZeRO split) is all-gathered where its layer runs, inside the
+  layer's recompute region (:meth:`MeshCtx.gather`);
+* the batch is split over the rules' batch axes; the query heads, the MLP
+  hidden dim, the vocab and the expert slots over ``model`` as the weights
+  are, so each rank's kernels run on its own heads, and the products whose
+  contraction dim is split (``wo``, ``w_down``, the MoE combine, a
+  vocab-split lookup) are all-reduced;
+* KV heads that the model axis does not divide are replicated (the GQA
+  fallback of ``resolve_spec``); each rank attends the KV heads its query
+  heads read;
+* a vocab-split loss takes its log-sum-exp and gold logit by all-reduces
+  over the vocab shards, a chunk of positions at a time, and never gathers
+  the ``[B, S, V]`` logits;
+* decode over a cache split by sequence (``kv_seq``) writes the new K/V on
+  the rank whose slice holds ``pos``, runs the decode kernel over each
+  rank's slice with its own valid length, and merges the partial outputs
+  by their log-sum-exps (``ops.decode_attention_lse``).
+
+Every exchange over a group of one rank is skipped, so on a 1 x 1 mesh the
+sharded step computes what the one-device step computes. The sharded step
+covers the archs whose blocks are self attention with a dense or MoE FFN
+(:func:`check_sharded`); SSD blocks, ring caches, cross attention and the
+modality stubs wait for ROADMAP Queue 1 item 4d.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
-from typing import Any, Dict, Optional
+import math
+from functools import cached_property, partial
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +88,194 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
-from repro_torch.models.param import ParamSpec, tree_map_specs
+from repro_torch.models.param import (ParamSpec, Rules, axis_sizes, entry_axes, mesh_coords,
+                                      resolve_spec, tree_map_specs)
+from repro_torch.parallel import collectives as coll
+
+
+# ---------------------------------------------------------------------------
+# mesh context
+# ---------------------------------------------------------------------------
+
+# the logical dims a weight is stored split on and gathered where it is used
+STORAGE_AXES = ("embed", "expert_embed")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshCtx:
+    """A sharded step's ``DeviceMesh`` and rules (the reference's
+    ``MeshCtx``): the groups of ranks its collectives run over, and this
+    rank's place in them."""
+
+    mesh: Any
+    rules: Rules
+
+    def shard(self, x, *logical):
+        """``x``, a rank's block laid out as ``logical`` says: the local
+        tensors already are (the reference constrains a global array)."""
+        return x
+
+    @cached_property
+    def sizes(self) -> Dict[str, int]:
+        return axis_sizes(self.mesh)
+
+    @cached_property
+    def coords(self) -> Dict[str, int]:
+        return mesh_coords(self.mesh)
+
+    @cached_property
+    def world(self) -> int:
+        return math.prod(self.sizes.values())
+
+    @property
+    def n_model(self) -> int:
+        return self.sizes["model"]
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return entry_axes(self.rules.get("batch"))
+
+    @property
+    def expert_gather_axes(self) -> Tuple[str, ...]:
+        return entry_axes(self.rules.get("expert_embed"))
+
+    def memo(self, key, make):
+        """``make()``, computed once a key: the layout's answers do not
+        change, and the step asks them for every layer."""
+        memo = self.__dict__.setdefault("_answers", {})
+        if key not in memo:
+            memo[key] = make()
+        return memo[key]
+
+    def memo_cfg(self, tag: str, cfg: ModelConfig, make):
+        """:meth:`memo` of an answer about ``cfg``, keyed by the object (a
+        config's hash walks all its fields), which the entry keeps alive."""
+        return self.memo((tag, id(cfg)), lambda: (cfg, make()))[1]
+
+    def axes_for(self, dim: int, logical: Optional[str]) -> Tuple[str, ...]:
+        """The mesh axes a dim of size ``dim`` and logical name ``logical``
+        is split over (``resolve_spec``)."""
+        return self.memo(("axes", dim, logical), lambda: entry_axes(
+            resolve_spec((dim,), (logical,), self.rules, self.sizes)[0]))
+
+    def group(self, axes) -> Optional[coll.Group]:
+        """The group of ranks that differ only along ``axes`` (mesh order,
+        data outer), or None for a group of one rank."""
+        key = ("group", tuple(axes) if isinstance(axes, list) else axes)
+        return self.memo(key, lambda: self._make_group(
+            tuple(a for a in self.sizes if a in entry_axes(axes))))
+
+    def _make_group(self, axes) -> Optional[coll.Group]:
+        size = math.prod(self.sizes[a] for a in axes)
+        if size == 1:
+            return None
+        import torch.distributed as dist
+        if len(axes) == 1:
+            pg = self.mesh.get_group(axes[0])
+        elif len(axes) == len(self.sizes) and size == dist.get_world_size():
+            pg = dist.group.WORLD  # the mesh in rank order: data outer
+        else:
+            raise NotImplementedError(f"a group over {axes} of {self.sizes}")
+        index = 0
+        for a in axes:
+            index = index * self.sizes[a] + self.coords[a]
+        return coll.Group(axes, pg, size, index)
+
+    @property
+    def everyone(self) -> Optional[coll.Group]:
+        return self.group(tuple(self.sizes))
+
+    def local_group(self, local_dim: int, logical: str) -> Optional[coll.Group]:
+        """The group splitting a dim of logical name ``logical`` whose block
+        has ``local_dim`` entries: the longest prefix of the rule's axes that
+        ``resolve_spec`` keeps for the whole dim."""
+        def find():
+            axes = entry_axes(self.rules.get(logical))
+            for j in range(len(axes), 0, -1):
+                n = math.prod(self.sizes[a] for a in axes[:j])
+                if self.axes_for(local_dim * n, logical) == axes[:j]:
+                    return self.group(axes[:j])
+            return None
+
+        return self.memo(("local", local_dim, logical), find)
+
+    def gather(self, tree, specs, stacked: bool = False):
+        """Working weights of a rank's blocks ``tree`` (their ParamSpecs
+        ``specs``; ``stacked``: a layer of a stacked tree, the specs' first
+        dim dropped): each dim stored split over ``STORAGE_AXES``
+        all-gathered, the compute splits (heads, MLP, vocab, expert slots)
+        kept. The leaves and dims to gather are found once a ``specs``
+        object; the step asks for every layer (a tree no dim of which is
+        split so comes back as it is)."""
+        plan = self.memo(("gather", id(specs), stacked),
+                         lambda: (specs, self._gather_plan(specs, stacked, ())))[1]
+        for path, d, group in plan:
+            tree = _set_in(tree, path, coll.all_gather(_get_in(tree, path), group, d))
+        return tree
+
+    def _gather_plan(self, specs, stacked: bool, path: tuple) -> list:
+        """(path, dim, group) of each stored split of ``specs``' leaves."""
+        if isinstance(specs, dict):
+            return [e for k in specs for e in self._gather_plan(specs[k], stacked, path + (k,))]
+        shape, logical = specs.shape[stacked:], specs.logical[stacked:]
+        plan = []
+        for d, (n, lg) in enumerate(zip(shape, logical)):
+            group = self.group(self.axes_for(n, lg)) if lg in STORAGE_AXES else None
+            if group is not None:
+                plan.append((path, d, group))
+        return plan
+
+    def synced(self, tree, specs):
+        """``tree`` (a rank's parameter blocks) with each leaf's gradient
+        summed over the mesh axes its spec does not split: a replicated
+        leaf is used by every rank on its own share of the work."""
+        if isinstance(tree, dict):
+            return {k: self.synced(tree[k], specs[k]) for k in tree}
+        held = {a for e in resolve_spec(specs.shape, specs.logical, self.rules, self.sizes)
+                for a in entry_axes(e)}
+        return coll.grad_all_reduce(tree, self.group([a for a in self.sizes if a not in held]))
+
+
+def _get_in(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_in(tree, path: tuple, value):
+    """``tree`` with the leaf at ``path`` replaced (the dicts on the path
+    copied, ``tree`` itself unchanged)."""
+    if not path:
+        return value
+    return {**tree, path[0]: _set_in(tree[path[0]], path[1:], value)}
+
+
+def check_sharded(cfg: ModelConfig, ctx: MeshCtx) -> None:
+    """Raise ``NotImplementedError`` for a model the sharded step does not
+    cover yet: blocks other than self attention (SSD, sliding window and its
+    ring cache), cross attention, the modality stubs, and an expert layout
+    that splits an expert's FFN (ROADMAP Queue 1 item 4d)."""
+    why = None
+    if any(kind != ATTN for kind in cfg.pattern):
+        why = f"blocks {sorted(set(cfg.pattern) - {ATTN})}"
+    elif cfg.is_encoder_decoder or cfg.frontend != "none":
+        why = "cross attention and the modality stubs"
+    elif cfg.moe_num_experts:
+        ep = ctx.world if ctx.rules.get("moe_mode") == "token" else ctx.n_model
+        if moe_mod.moe_layout(cfg, ep)[1] != 1:
+            why = f"{cfg.moe_num_experts} experts split over {ep} ranks"
+    if why:
+        raise NotImplementedError(f"{cfg.name}: the sharded step of {why} waits for "
+                                  f"ROADMAP Queue 1 item 4d")
+
+
+def mesh_specs(cfg: ModelConfig, ctx: MeshCtx) -> dict:
+    """The parameter specs a sharded step lays out: :func:`model_specs` with
+    the expert slots of the expert-parallel domain (the model axis, or every
+    axis for token-routed decode), as the reference sizes them."""
+    token = ctx.rules.get("moe_mode") == "token"
+    return ctx.memo_cfg("specs", cfg, lambda: model_specs(cfg, ctx.n_model,
+                                                         ctx.world if token else 0))
 
 
 # ---------------------------------------------------------------------------
@@ -216,20 +434,26 @@ def _layer(tree, l: int):
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(cfg, bp, h):
+def _mlp(cfg, p, y, ctx, d_ff):
+    """The MLP; over a mesh, its hidden dim's split summed."""
+    out = mlp(cfg, p, y)
+    return out if ctx is None else coll.all_reduce(out, ctx.group(ctx.axes_for(d_ff, "mlp")))
+
+
+def _ffn_apply(cfg, bp, h, ctx=None):
     y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
     if "moe" in bp:
-        out = moe_mod.moe_apply(cfg, bp["moe"], y)
+        out = moe_mod.moe_apply(cfg, bp["moe"], y, ctx)
         if "shared_mlp" in bp:
-            out = out + mlp(cfg, bp["shared_mlp"], y)
+            out = out + _mlp(cfg, bp["shared_mlp"], y, ctx, cfg.moe_shared_expert_ff)
     else:
-        out = mlp(cfg, bp["mlp"], y)
+        out = _mlp(cfg, bp["mlp"], y, ctx, cfg.d_ff)
     if cfg.use_post_norm:
         out = rmsnorm(out, bp["post_ln_mlp"], cfg.norm_eps)
     return h + out
 
 
-def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out):
+def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
     """One block of the pattern at full sequence length: a Mamba block, or
     self attention (LOCAL: within the window) and, in an encoder-decoder
     model's decoder, cross attention over ``enc_out``; then the FFN."""
@@ -238,7 +462,7 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out):
     else:
         window = cfg.window_size if kind == LOCAL else 0
         a = attn_mod.self_attention(cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                                    positions=positions, causal=causal, window=window)
+                                    positions=positions, causal=causal, window=window, ctx=ctx)
         if cfg.use_post_norm:
             a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
         h = h + a
@@ -247,15 +471,19 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out):
             h = h + attn_mod.cross_attention(
                 cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
     if _has_ffn(cfg, kind):
-        h = _ffn_apply(cfg, bp, h)
+        h = _ffn_apply(cfg, bp, h, ctx)
     return h
 
 
-def _group_forward(cfg, gp, h, positions, enc_out, *, causal):
-    """One pattern group (``gp`` its blocks ``b0 ..``) at full length."""
+def _group_forward(cfg, gp, h, positions, enc_out, *, causal, ctx=None, specs=None):
+    """One pattern group (``gp`` its blocks ``b0 ..``) at full length; over
+    a mesh, ``gp`` is the rank's blocks, gathered here (``specs``: the
+    stacked group's ParamSpecs)."""
+    if ctx is not None:
+        gp = ctx.gather(gp, specs, stacked=True)
     for i, kind in enumerate(cfg.pattern):
         h = _block_forward(cfg, gp[f"b{i}"], kind, h, positions=positions, causal=causal,
-                           enc_out=enc_out)
+                           enc_out=enc_out, ctx=ctx)
     return h
 
 
@@ -310,7 +538,21 @@ def _run_encoder(cfg, params, enc_embeds):
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def _embed_inputs(cfg, params, batch):
+def _lookup(cfg, embed, tokens, ctx=None):
+    """The embeddings of ``tokens``; over a mesh whose model axis splits
+    the vocab, each rank looks up the ids in its rows and the ranks' rows
+    are summed (one of them nonzero)."""
+    group = None if ctx is None else ctx.group(ctx.axes_for(cfg.vocab_size, "vocab"))
+    if group is None:
+        return embed[tokens.long()].to(cfg.activation_dtype)
+    n = embed.shape[0]
+    ids = tokens.long() - group.index * n
+    mine = (ids >= 0) & (ids < n)
+    h = embed[ids.clamp(0, n - 1)] * mine[..., None].to(embed.dtype)
+    return coll.all_reduce(h, group).to(cfg.activation_dtype)
+
+
+def _embed_inputs(cfg, params, batch, ctx=None):
     """(h, enc_out): the token embeddings of ``batch["tokens"]`` [B, S], with
     a vision stub's ``batch["image_embeds"]`` [B, Ni, D] before them ([B,
     Ni + S, D] activations), and an encoder-decoder model's encoder output
@@ -318,7 +560,7 @@ def _embed_inputs(cfg, params, batch):
     act = cfg.activation_dtype
     enc_out = (_run_encoder(cfg, params, batch["enc_embeds"])
                if cfg.is_encoder_decoder else None)
-    h = params["embed"][batch["tokens"].long()].to(act)
+    h = _lookup(cfg, params["embed"], batch["tokens"], ctx)
     if cfg.frontend == "vision_stub":
         h = torch.cat([batch["image_embeds"].to(act), h], dim=1)
     return h, enc_out
@@ -340,20 +582,24 @@ def _logits(cfg, params, h):
     return logits
 
 
-def _decoder_stack(cfg, params, h, *, positions, causal, enc_out, aux_losses):
+def _decoder_stack(cfg, params, h, *, positions, causal, enc_out, aux_losses, ctx=None,
+                   specs=None):
     """The decoder groups over [B, S, D] activations, then ``final_norm``.
     An MoE model appends its load-balance loss to ``aux_losses``, taken, as
     the reference takes it, from the first group's first MoE block on the
-    stack's input: a representative sample of the router distribution."""
+    stack's input: a representative sample of the router distribution.
+    Over a mesh ``params["decoder"]`` holds the rank's blocks (``specs``
+    their ParamSpecs), gathered a layer at a time."""
     if aux_losses is not None and cfg.moe_num_experts:
         first = _layer(params["decoder"], 0)
         for i in range(len(cfg.pattern)):
             bp = first[f"b{i}"]
             if "moe" in bp:
                 y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
-                aux_losses.append(moe_mod.moe_aux_loss(cfg, bp["moe"], y))
+                aux_losses.append(moe_mod.moe_aux_loss(cfg, bp["moe"], y, ctx))
                 break
-    group = _remat(cfg, partial(_group_forward, cfg, causal=causal))
+    group = _remat(cfg, partial(_group_forward, cfg, causal=causal, ctx=ctx,
+                                specs=None if ctx is None else specs["decoder"]))
     for l in range(cfg.num_groups):
         h = group(_layer(params["decoder"], l), h, positions, enc_out)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -365,16 +611,33 @@ def _decoder_stack(cfg, params, h, *, positions, causal, enc_out, aux_losses):
 LOSS_CHUNK_BYTES = 1 << 30
 
 
-def _token_losses(cfg, params, h, targets):
+def _token_losses(cfg, params, h, targets, group=None):
     """logsumexp - gold of each position: h [B, n, D] (the positions that
-    predict), targets [B, n]; float32 [B, n]."""
+    predict), targets [B, n]; float32 [B, n]. With ``group`` the vocab is
+    split over its ranks: the log-sum-exp and the gold logit are summed
+    over them."""
     logits = _logits(cfg, params, h)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return logz - gold
+    m = coll.all_reduce_max(logits.amax(dim=-1), group)
+    logz = torch.log(coll.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), group)) + m
+    n = logits.shape[-1]
+    ids = targets.long() - group.index * n
+    gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    gold = coll.all_reduce(gold * ((ids >= 0) & (ids < n)), group)
     return logz - gold
 
 
-def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+def _gathered_top(cfg, params, ctx, specs):
+    """The leaves outside the layer stack (embeddings, heads, final norm)
+    as working weights."""
+    return {k: v if k in ("decoder", "encoder") else ctx.gather(v, specs[k])
+            for k, v in params.items()}
+
+
+def loss_fn(cfg: ModelConfig, params, batch, ctx: Optional[MeshCtx] = None) -> torch.Tensor:
     """Next-token (or, for an encoder-only model, MLM) cross-entropy, a
     float32 scalar. ``batch``: ``tokens`` [B, S] and the model's other
     inputs (:func:`_embed_inputs`); an encoder-only model's ``targets``
@@ -384,12 +647,22 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     The logits are made a chunk of positions at a time
     (:data:`LOSS_CHUNK_BYTES`), each chunk recomputed in the backward pass,
     so the float32 logits of the whole batch never exist at once; each
-    position's loss is the reference's."""
-    h, enc_out = _embed_inputs(cfg, params, batch)
+    position's loss is the reference's.
+
+    With ``ctx``, ``params`` and ``batch`` are the rank's blocks and the
+    result is the mean over the rank's batch shard (the mean over the
+    shards is the reference's loss; ``launch.steps.loss_and_grads``)."""
+    specs = None
+    if ctx is not None:
+        check_sharded(cfg, ctx)
+        specs = mesh_specs(cfg, ctx)
+        params = _gathered_top(cfg, params, ctx, specs)
+    h, enc_out = _embed_inputs(cfg, params, batch, ctx)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux: Optional[list] = [] if cfg.moe_num_experts else None
     h = _decoder_stack(cfg, params, h, positions=positions,
-                       causal=not cfg.is_encoder_only, enc_out=enc_out, aux_losses=aux)
+                       causal=not cfg.is_encoder_only, enc_out=enc_out, aux_losses=aux,
+                       ctx=ctx, specs=specs)
     tokens = batch["tokens"]
     n_txt = tokens.shape[1]
     if cfg.is_encoder_only:
@@ -397,8 +670,9 @@ def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     else:  # the text positions that predict a next token
         targets, h = tokens[:, 1:], h[:, -n_txt:, :][:, :-1, :]
     B, n = targets.shape
-    chunk = max(1, LOSS_CHUNK_BYTES // (4 * B * cfg.vocab_size))
-    run = partial(_token_losses, cfg, params)
+    vocab = None if ctx is None else ctx.group(ctx.axes_for(cfg.vocab_size, "vocab"))
+    chunk = max(1, LOSS_CHUNK_BYTES // (4 * B * cfg.vocab_size // (vocab.size if vocab else 1)))
+    run = partial(_token_losses, cfg, params, group=vocab)
     if torch.is_grad_enabled() and n > chunk:
         run = partial(torch_checkpoint.checkpoint, run, use_reentrant=False)
     losses = torch.cat([run(h[:, i:i + chunk], targets[:, i:i + chunk])
@@ -471,7 +745,8 @@ def _ring_slots(S: int, W: int, device) -> torch.Tensor:
     return S - W + torch.remainder(torch.arange(W, device=device) - (S - W), W)
 
 
-def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
+def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
+               ctx: Optional[MeshCtx] = None):
     """Process the prompt ``batch["tokens"]`` [B, S] (with the model's other
     inputs, :func:`_embed_inputs`); return (last-position float32 logits
     [B, 1, V], cache). S counts a vision stub's image positions. A global
@@ -480,15 +755,29 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
     holding the last W positions (:func:`_ring_slots`), else it has
     ``min(max_len, W)`` slots. A MAMBA block caches its final SSM state and
     conv tails. A decoder block of an encoder-decoder model also attends
-    the encoder output and caches its cross K/V."""
-    h, enc_out = _embed_inputs(cfg, params, batch)
+    the encoder output and caches its cross K/V.
+
+    With ``ctx`` (:func:`check_sharded`'s models), ``params`` and ``batch``
+    are the rank's blocks; the logits are the rank's block of the vocab,
+    and the cache is laid out by the rules' ``kv_seq``: a rank keeps the
+    prompt's K/V of the positions its slice of the ``max_len`` slots
+    holds."""
+    specs = None
+    if ctx is not None:
+        check_sharded(cfg, ctx)
+        specs = mesh_specs(cfg, ctx)
+        params = _gathered_top(cfg, params, ctx, specs)
+    h, enc_out = _embed_inputs(cfg, params, batch, ctx)
     B, S = h.shape[0], h.shape[1]
     enc_S = 0 if enc_out is None else enc_out.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    seq = None if ctx is None else ctx.group(ctx.axes_for(max_len, "kv_seq"))
+    T = max_len // (seq.size if seq else 1)  # a global block's slots on this rank
+    t0 = (seq.index if seq else 0) * T  # the position its first slot holds
     blocks, cache = [], {}  # (window, ring slot positions or None) a block
     for i, kind in enumerate(cfg.pattern):
         W = cfg.window_size if kind == LOCAL else 0
-        Tc = min(max_len, W) if W else max_len  # W when W <= S (<= max_len)
+        Tc = min(max_len, W) if W else T  # W when W <= S (<= max_len)
         blocks.append((W, _ring_slots(S, W, h.device) if W and W <= S else None))
         cache[f"b{i}"] = {
             name: torch.zeros((cfg.num_groups,) + spec.shape, dtype=spec.dtype,
@@ -496,6 +785,8 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
             for name, spec in _cache_entry(cfg, kind, B, Tc, enc_S).items()}
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
+        if ctx is not None:
+            gp = ctx.gather(gp, specs["decoder"], stacked=True)
         for i, (kind, (W, ring)) in enumerate(zip(cfg.pattern, blocks)):
             bp, bc = gp[f"b{i}"], cache[f"b{i}"]
             if kind == MAMBA:
@@ -509,12 +800,14 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
             else:
                 a, (k, v) = attn_mod.self_attention(
                     cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                    positions=positions, causal=True, window=W, return_kv=True)
+                    positions=positions, causal=True, window=W, return_kv=True, ctx=ctx)
                 if cfg.use_post_norm:
                     a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
                 h = h + a
                 if ring is not None:
                     k, v = k[:, ring], v[:, ring]
+                else:  # the prompt positions of this rank's slots
+                    k, v = k[:, t0:t0 + T], v[:, t0:t0 + T]
                 bc["k"][l, :, :k.shape[1]] = k
                 bc["v"][l, :, :v.shape[1]] = v
                 if enc_out is not None:
@@ -523,12 +816,12 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int):
                         cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
                     bc["cross_k"][l], bc["cross_v"][l] = enc_kv
             if _has_ffn(cfg, kind):
-                h = _ffn_apply(cfg, bp, h)
+                h = _ffn_apply(cfg, bp, h, ctx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h[:, -1:, :]), cache
 
 
-def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
+def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[MeshCtx] = None):
     """One decode step. token: [B, 1] int; ``pos`` a host int (the new
     token's position); the cache is updated in place and returned. A LOCAL
     block whose cache has exactly ``window_size`` slots decodes against it
@@ -538,10 +831,23 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
     position; a MAMBA block takes one step of its recurrence
     (:func:`~repro_torch.models.ssm.ssm_decode`) and writes its new state
     and conv tails into the cache. Returns (float32 logits [B, 1, V],
-    cache)."""
-    h = params["embed"][token.long()].to(cfg.activation_dtype)
+    cache).
+
+    With ``ctx`` (:func:`check_sharded`'s models), ``params``, ``token``
+    and ``cache`` are the rank's blocks (the cache laid out by the rules'
+    ``kv_seq``) and the logits are the rank's block of the vocab; every
+    attention goes through ``ops.decode_attention_lse``
+    (:func:`~repro_torch.models.attention.decode_self_attention`)."""
+    specs = None
+    if ctx is not None:
+        check_sharded(cfg, ctx)
+        specs = mesh_specs(cfg, ctx)
+        params = _gathered_top(cfg, params, ctx, specs)
+    h = _lookup(cfg, params["embed"], token, ctx)
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
+        if ctx is not None:
+            gp = ctx.gather(gp, specs["decoder"], stacked=True)
         for i, kind in enumerate(cfg.pattern):
             bp, bc = gp[f"b{i}"], cache[f"b{i}"]
             if kind == MAMBA:
@@ -560,7 +866,8 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
                         cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W)
                 else:
                     y, _, _ = attn_mod.decode_self_attention(
-                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W)
+                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W,
+                        ctx=ctx)
                 if cfg.use_post_norm:
                     y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
                 h = h + y
@@ -569,6 +876,6 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache):
                         cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps),
                         (bc["cross_k"][l], bc["cross_v"][l]))
             if _has_ffn(cfg, kind):
-                h = _ffn_apply(cfg, bp, h)
+                h = _ffn_apply(cfg, bp, h, ctx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h), cache

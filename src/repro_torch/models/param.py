@@ -15,8 +15,16 @@ to the name as ``PartitionSpec`` collapses them. :func:`resolve_spec` keeps,
 per dim, the longest prefix of the rule's axes whose sizes divide it, and
 :func:`shard_shape` is one device's block of a tensor under a spec (JAX's
 ``NamedSharding.shard_shape``). The dry run (``launch.dryrun``) counts each
-device's bytes from these; the port's steps still run on one card (a
-sharded step is ROADMAP Queue 1 item 4c).
+device's bytes from these.
+
+A sharded step holds each tensor as a ``DTensor`` over a
+``torch.distributed`` ``DeviceMesh`` (:func:`distribute`): the spec's
+entries become ``Shard`` placements (:func:`placements`, what the
+reference's ``param_shardings`` gives a leaf), and a dim split over
+several axes is cut in JAX's order, the outer axis first (data outer). :func:`init_params` on a mesh
+draws every leaf as the unsharded port does and keeps each rank's block.
+A mesh argument is a :class:`~repro_torch.launch.mesh.MeshLayout` or a
+``DeviceMesh``.
 """
 
 from __future__ import annotations
@@ -78,12 +86,18 @@ def init_param(spec: ParamSpec, generator: torch.Generator) -> torch.Tensor:
     return x.mul_(std).to(spec.dtype)  # in place: one float32 copy of the leaf
 
 
-def init_params(tree, generator: torch.Generator) -> Any:
+def init_params(tree, generator: torch.Generator, mesh=None, rules=None) -> Any:
     """Materialise a ParamSpec tree, leaf after leaf in sorted key order
-    from one generator (deterministic for a given seed and device)."""
+    from one generator (deterministic for a given seed and device). Given
+    a ``DeviceMesh`` and ``rules``, each leaf is drawn whole, the same
+    values as without a mesh, and becomes a ``DTensor`` holding this rank's
+    block of it (:func:`distribute` by :func:`resolve_spec`)."""
     if is_spec(tree):
-        return init_param(tree, generator)
-    return {k: init_params(tree[k], generator) for k in sorted(tree)}
+        x = init_param(tree, generator)
+        if mesh is None:
+            return x
+        return distribute(x, resolve_spec(tree.shape, tree.logical, rules, mesh), mesh)
+    return {k: init_params(tree[k], generator, mesh, rules) for k in sorted(tree)}
 
 
 def abstract_params(tree) -> Any:
@@ -208,6 +222,16 @@ def entry_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a :class:`~repro_torch.launch.mesh.MeshLayout`,
+    a ``DeviceMesh`` or such a dict itself."""
+    if isinstance(mesh, dict):
+        return mesh
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return mesh.shape
+
+
 def logical_to_spec(logical: Tuple[Optional[str], ...], rules: Rules) -> Spec:
     return pspec(*(rules.get(ax) if ax is not None else None for ax in logical))
 
@@ -216,13 +240,14 @@ def resolve_spec(shape: Tuple[int, ...], logical, rules: Rules, mesh) -> Spec:
     """Shape-aware spec: per dim, keep the longest prefix of the rule's mesh
     axes whose size product divides the dim (e.g. 8 KV heads on a 16-way model
     axis degrade to replication — the standard GQA fallback)."""
+    sizes = axis_sizes(mesh)
     entries = []
     for dim, ax in zip(shape, logical):
         keep, prod = [], 1
         for a in entry_axes(rules.get(ax) if ax is not None else None):
-            if dim % (prod * mesh.shape[a]) == 0:
+            if dim % (prod * sizes[a]) == 0:
                 keep.append(a)
-                prod *= mesh.shape[a]
+                prod *= sizes[a]
             else:
                 break
         entries.append(keep)
@@ -243,9 +268,10 @@ def shard_shape(shape: Tuple[int, ...], spec: Spec, mesh) -> Tuple[int, ...]:
     not divide the dim."""
     if len(spec) > len(shape):
         raise ValueError(f"spec {spec} has more entries than shape {shape} has dims")
+    sizes = axis_sizes(mesh)
     out = []
     for i, dim in enumerate(shape):
-        n = math.prod(mesh.shape[a] for a in entry_axes(spec[i] if i < len(spec) else None))
+        n = math.prod(sizes[a] for a in entry_axes(spec[i] if i < len(spec) else None))
         if dim % n:
             raise ValueError(f"spec {spec} splits dim {i} of {shape} {n} ways")
         out.append(dim // n)
@@ -282,3 +308,74 @@ class Sharded:
 
 def sharded(shape, dtype: torch.dtype, mesh, spec: Spec) -> Sharded:
     return Sharded(torch.empty(tuple(shape), dtype=dtype, device="meta"), tuple(spec), mesh)
+
+
+# ---------------------------------------------------------------------------
+# DTensors over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def shard_slices(shape: Tuple[int, ...], spec: Spec, mesh, coords: Dict[str, int]) -> tuple:
+    """The block of a ``shape`` tensor that the device at ``coords`` (axis
+    name -> index) holds under ``spec``: one slice a dim. A dim split over
+    several axes is cut outer axis first, as JAX cuts it."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, block in zip(shape, shard_shape(shape, spec, mesh)):
+        i = 0
+        for a in entry_axes(spec[len(out)] if len(out) < len(spec) else None):
+            i = i * sizes[a] + coords[a]
+        out.append(slice(i * block, (i + 1) * block) if block != dim else slice(None))
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec: Spec, mesh, coords: Dict[str, int]) -> torch.Tensor:
+    """This device's block of ``x`` (a copy, so that ``x`` can be freed;
+    ``x`` itself where the spec splits nothing)."""
+    sl = shard_slices(tuple(x.shape), spec, mesh, coords)
+    if all(s == slice(None) for s in sl):
+        return x
+    return x[sl].clone()
+
+
+def placements(spec: Spec, mesh) -> list:
+    """The DTensor placements of ``spec`` over a ``DeviceMesh``: ``Shard(d)``
+    on each mesh dim that splits tensor dim d, ``Replicate()`` elsewhere.
+    A dim split over several axes takes them in mesh order (outer first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
+            raise ValueError(f"spec {spec}: axes {axes} are not in mesh order {names}")
+        for a in axes:
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+def spec_of(x) -> Spec:
+    """The spec of a DTensor's placements over its ``DeviceMesh``, one
+    entry a dim (the inverse of :func:`placements`)."""
+    entries: Dict[int, list] = {}
+    for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if p.is_shard():
+            entries.setdefault(p.dim, []).append(name)
+    return pspec(*(entries.get(d) for d in range(x.dim())))
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's index along each axis of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def distribute(x: torch.Tensor, spec: Spec, mesh):
+    """``x``, the whole tensor on every rank, as a ``DTensor`` over the
+    ``DeviceMesh`` ``mesh`` holding this rank's block by ``spec`` (no
+    communication: every rank cuts its own block)."""
+    from torch.distributed.tensor import DTensor
+
+    local = local_block(x, spec, mesh, mesh_coords(mesh))
+    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                              shape=x.shape, stride=x.contiguous().stride())
+

@@ -10,18 +10,27 @@ cast back to its leaf's dtype, as the JAX package computes it. The step
 count is an int32 scalar tensor; the bias corrections and Adafactor's decay
 take its float32 value, as JAX does (``b1 ** count`` in float32).
 
+Over a mesh (``ctx``, a ``models.model.MeshCtx``, and ``specs``, each
+leaf's spec) every tree holds a rank's blocks and the update equals the
+unsharded one: the global norm sums each leaf's squares over the ranks
+that hold distinct blocks of it, and Adafactor's row and column means and
+its update's RMS are taken over the whole leaf (an all-reduce over the
+axes that split the reduced dims). AdamW is elementwise.
+
 Error-feedback int8 compression of the gradients lives in
 :mod:`repro_torch.optim.compression`.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.param import ParamSpec, tree_map_specs
+from repro_torch.models.param import ParamSpec, entry_axes, tree_map_specs
+from repro_torch.parallel import collectives as coll
 
 OptState = Dict[str, Any]
 
@@ -49,9 +58,28 @@ def _unflatten(like, it):
     return next(it)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32. Over a mesh
+    (``ctx`` and each leaf's spec ``specs``) a leaf replicated over some
+    axes adds its square sum once, and the sum is taken over the ranks."""
+    if ctx is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    total = 0
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs), strict=True):
+        sq = torch.sum(torch.square(x.float()))
+        copies = ctx.world // math.prod(ctx.sizes[a] for e in spec for a in entry_axes(e))
+        total = total + (sq / copies if copies > 1 else sq)
+    return torch.sqrt(coll.all_reduce(total, ctx.everyone))
+
+
+def _mean(x, dim, group):
+    """torch.mean over ``dim`` (None: every element) of a block whose dim
+    is split over ``group``'s ranks."""
+    if group is None:
+        return torch.mean(x) if dim is None else torch.mean(x, dim=dim)
+    n = (x.numel() if dim is None else x.shape[dim]) * group.size
+    s = torch.sum(x) if dim is None else torch.sum(x, dim=dim)
+    return coll.all_reduce(s, group) / n
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -110,12 +138,17 @@ def _adafactor_init_specs(param_specs) -> OptState:
     return {"vr": tree_map_specs(row, param_specs), "vc": tree_map_specs(col, param_specs)}
 
 
-def _adafactor_update(grads, state, params, *, lr, b2, eps, wd):
+def _adafactor_update(grads, state, params, *, lr, b2, eps, wd, ctx=None, specs=None):
     c = state["count"] + 1
     cf = c.float()
     decay = 1.0 - cf ** -0.8  # the t^-0.8 schedule of the Adafactor paper
 
-    def upd(g, vr, vc, p):
+    def upd(g, vr, vc, p, spec):
+        def split(*dims):  # the group splitting dims of the leaf
+            if ctx is None:
+                return None
+            return ctx.group([a for d in dims for a in entry_axes(spec[d])])
+
         g = g.float()
         g2 = torch.square(g) + eps
         if g.dim() < 2:
@@ -123,19 +156,20 @@ def _adafactor_update(grads, state, params, *, lr, b2, eps, wd):
             update = g * torch.rsqrt(vr_n)
             vc_n = vc
         else:
-            vr_n = decay * vr + (1 - decay) * torch.mean(g2, dim=-1)
-            vc_n = decay * vc + (1 - decay) * torch.mean(g2, dim=-2)
-            r = vr_n / torch.mean(vr_n, dim=-1, keepdim=True)
+            vr_n = decay * vr + (1 - decay) * _mean(g2, -1, split(-1))
+            vc_n = decay * vc + (1 - decay) * _mean(g2, -2, split(-2))
+            r = vr_n / _mean(vr_n, -1, split(-2)).unsqueeze(-1)
             update = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc_n)[..., None, :])
         # clip the update's RMS to 1 (Adafactor's d = 1)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+        rms = torch.sqrt(_mean(torch.square(update), None, split(*range(g.dim()))) + 1e-30)
         update = update / torch.clamp(rms, min=1.0)
         newp = p.float() * (1 - lr * wd) - lr * update
         return newp.to(p.dtype), vr_n, vc_n
 
-    out = [upd(g, r_, c_, p) for g, r_, c_, p in zip(
+    leaf_specs = tree_leaves(specs) if specs is not None else [None] * len(tree_leaves(params))
+    out = [upd(g, r_, c_, p, sp) for g, r_, c_, p, sp in zip(
         tree_leaves(grads), tree_leaves(state["vr"]), tree_leaves(state["vc"]),
-        tree_leaves(params),
+        tree_leaves(params), leaf_specs,
         strict=True)]
     new_p = tree_unflatten(params, [o[0] for o in out])
     return new_p, {"vr": tree_unflatten(params, [o[1] for o in out]),
@@ -164,16 +198,19 @@ class Optimizer:
         st["count"] = ParamSpec((), (), init="zeros", dtype=torch.int32)
         return st
 
-    def update(self, grads, state, params) -> Tuple[Any, OptState, torch.Tensor]:
+    def update(self, grads, state, params, ctx=None,
+               specs=None) -> Tuple[Any, OptState, torch.Tensor]:
         """(new params, new state, the gradients' global norm before the
         clip). Gradients are scaled by min(1, grad_clip / (norm + 1e-9))
-        in their own dtype, as the JAX package scales them."""
-        gnorm = global_norm(grads)
+        in their own dtype, as the JAX package scales them. Over a mesh
+        (``ctx``; ``specs`` the tree of each leaf's spec) the trees are a
+        rank's blocks."""
+        gnorm = global_norm(grads, ctx, specs)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         grads = tree_unflatten(grads, [g * scale.to(g.dtype) for g in tree_leaves(grads)])
         if self.name == "adafactor":
             p, s = _adafactor_update(grads, state, params, lr=self.lr, b2=self.b2,
-                                     eps=self.eps, wd=self.weight_decay)
+                                     eps=self.eps, wd=self.weight_decay, ctx=ctx, specs=specs)
         else:
             p, s = _adamw_update(grads, state, params, lr=self.lr, b1=self.b1,
                                  b2=self.b2, eps=self.eps, wd=self.weight_decay)

@@ -205,10 +205,9 @@ def model_flops(cfg, shape) -> float:
 
 def extrapolate_collectives(st1: CollectiveStats, st2: CollectiveStats,
                             groups: int) -> CollectiveStats:
-    """Linear extrapolation from 1-group/2-group counts to ``groups``.
-
-    The dry run derives its collectives at full depth and does not call
-    this; it is the reference's counterpart, held against it by the tests."""
+    """Linear extrapolation from 1-group/2-group counts to ``groups``
+    (``launch.dryrun.count_collectives`` counts a deep model's real
+    collectives at one and two groups)."""
     out = CollectiveStats()
     kinds = set(st1.ops) | set(st2.ops)
     for k in kinds:

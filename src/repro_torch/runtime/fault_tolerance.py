@@ -10,9 +10,9 @@ by tests; they are the control logic a multi-host launcher runs per host:
     so the replay is exact).
   * ``StragglerMonitor``: per-step wall time against the trailing median; a
     step slower than ``threshold x`` the median is flagged for mitigation.
-  * ``elastic_reshard``: a host-resident state re-placed onto a device
-    when the device set changed between restarts (the reference re-shards
-    onto a new mesh; the port trains on one device).
+  * ``elastic_reshard``: a host-resident state re-placed onto a device, or
+    onto any ``DeviceMesh`` in a template's layout, when the device set
+    changed between restarts.
 
 POLCA's power plane reaches the loop through :meth:`TrainSupervisor.
 power_event`: :class:`BrakeSentinel` turns N consecutive braked telemetry
@@ -177,19 +177,32 @@ class BrakeSentinel:
 
 def elastic_reshard(state_template_fn: Callable[[Any], Any], host_state: Any,
                     device) -> Any:
-    """Re-place a host-resident state onto ``device``.
+    """Re-place a host-resident state onto ``device``: a device, or a
+    ``DeviceMesh`` of any shape.
 
-    ``state_template_fn(device) -> template``: a tree of tensors (the meta
-    device's :func:`~repro_torch.launch.steps.abstract_state` will do) whose
-    leaves give each leaf's dtype; the values come from ``host_state`` (numpy
-    arrays or tensors, the template's layout). This is the restart path
-    when the device set changed."""
-    device = torch.device(device)
+    ``state_template_fn(device) -> template``: a tree whose leaves give
+    each leaf's dtype and layout: tensors (the meta device's
+    :func:`~repro_torch.launch.steps.abstract_state` will do) for a
+    device; DTensors, or ``abstract_state(cfg, opt, mesh, rules)``'s
+    ``Sharded`` leaves, for a mesh, where each rank keeps its block of
+    every leaf (``checkpointer.place_like``). The values come from
+    ``host_state`` (numpy arrays or tensors, whole, the template's tree).
+    This is the restart path when the device set changed."""
+    if isinstance(device, (str, torch.device)):
+        device = torch.device(device)
+        template = state_template_fn(device)
+
+        def place(t, v):
+            if isinstance(t, dict):
+                return {k: place(t[k], v[k]) for k in t}
+            return torch.as_tensor(v).to(device=device, dtype=t.dtype)
+
+        return place(template, host_state)
     template = state_template_fn(device)
 
-    def place(t, v):
+    def place_mesh(t, v):
         if isinstance(t, dict):
-            return {k: place(t[k], v[k]) for k in t}
-        return torch.as_tensor(v).to(device=device, dtype=t.dtype)
+            return {k: place_mesh(t[k], v[k]) for k in t}
+        return checkpointer.place_like(torch.as_tensor(v), t)
 
-    return place(template, host_state)
+    return place_mesh(template, host_state)

@@ -120,7 +120,7 @@ def test_supervisor_crash_restart_replays_exactly(tmp_path):
     opt = make_optimizer(cfg.optimizer)
     state0 = init_state(cfg, opt, "cpu")
     pipeline = SyntheticTokenPipeline(cfg, DataConfig(2, 32))
-    clean_step = build_train_step(cfg, opt)
+    clean_step = build_train_step(cfg, None, None, opt)
     sup_clean = TrainSupervisor(clean_step, pipeline, str(tmp_path / "clean"), ckpt_interval=4)
     final_clean, _ = sup_clean.run(state0, 12)
 

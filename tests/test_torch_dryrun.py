@@ -219,7 +219,7 @@ def test_two_part_train_trace_equals_one_pass(arch):
     one = make_local_mesh(1, 1)
     _, _, inputs = dryrun.lay_out(cfg, shape, one)
     batch = {k: v.tensor for k, v in inputs.items()}
-    step = build_train_step(cfg, opt)
+    step = build_train_step(cfg, None, None, opt)
     whole = dryrun._trace(lambda: step(state, batch), 4)
     parts = dryrun.trace_step(cfg, shape, 4)
     assert (parts.peak, parts.out_new, parts.flops, parts.accessed) == (

@@ -115,8 +115,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
                 "--requests", "2", "--prompt", "8", "--out-tokens", "2",
                 "--report-power"])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a sharded run needs its ranks (torchrun; tests/test_torch_sharded.py
+    # serves on 8), and an arch outside the sharded step's slice is refused,
+    # never served unsharded instead
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                    "--model-par", "2"])
+    with pytest.raises(NotImplementedError, match="item 4d"):
+        serve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
                     "--model-par", "2"])
 
 
@@ -214,8 +220,11 @@ def test_train_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_p
         train.main(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(args + ["--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         train.main(args + ["--device", "cpu", "--model-par", "2"])
+    with pytest.raises(NotImplementedError, match="item 4d"):
+        train.main(["--arch", "mamba2-370m"] + args[2:] + ["--device", "cpu",
+                                                          "--model-par", "2"])
     assert not any(tmp_path.iterdir())  # nothing ran
     assert len(train.main(args + ["--device", "cpu"])) == 2
 
@@ -286,6 +295,13 @@ def test_copied_numpy_modules_are_scanned():
             "src/repro_torch/launch/dryrun.py",
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/parallel/roofline.py",
+            "src/repro_torch/parallel/collectives.py",
+            "src/repro_torch/models/model.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/kernels/decode_attention.py",
+            "src/repro_torch/launch/steps.py",
+            "src/repro_torch/launch/serve.py",
             "src/repro_torch/kernels/traced.py"} <= rel
 
 

@@ -217,7 +217,7 @@ def test_train_steps_match_jax(arch, mesh):
     first, want = jax_steps(jcfg, np_params, jbatches, mesh)
     opt = make_optimizer(cfg.optimizer)
     assert opt.name == ("adafactor" if arch in BF16_PARAM_ARCHS else "adamw")
-    step = build_train_step(cfg, opt)
+    step = build_train_step(cfg, None, None, opt)
     for start in (0, 1):
         state = _port_state(cfg, opt, first if start == 0 else want[0][0])
         for i in range(start, 3):
@@ -238,7 +238,7 @@ def test_bf16_parameter_storage_step_gap(arch, mesh):
     jb = jax_batch(jcfg)
     first, ((jstate, jmetrics),) = jax_steps(jcfg, shared_params(jcfg), [jb], mesh)
     opt = make_optimizer(cfg.optimizer)
-    state, metrics = build_train_step(cfg, opt)(_port_state(cfg, opt, first), port_batch(jb))
+    state, metrics = build_train_step(cfg, None, None, opt)(_port_state(cfg, opt, first), port_batch(jb))
     assert abs(float(metrics["loss"]) - jmetrics["loss"]) <= 1e-5 * abs(jmetrics["loss"])
     _check_state(state, jstate, BF16_STORAGE_RTOL, moment_bound=2 * BF16_STORAGE_RTOL)
 
@@ -275,7 +275,7 @@ def test_train_step_leaves_no_tensor_in_a_reference_cycle(arch):
     opt = make_optimizer(cfg.optimizer)
     state = train.init_state(cfg, opt, "cpu", seed=0)
     pipeline = SyntheticTokenPipeline(cfg, DataConfig(2, 16))
-    step = build_train_step(cfg, opt)
+    step = build_train_step(cfg, None, None, opt)
     batch = {k: torch.as_tensor(v) for k, v in pipeline.batch_at(0).items()}
     # the first step imports modules lazily, whose import frames sit in cycles
     state, _ = step(state, batch)

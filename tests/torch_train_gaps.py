@@ -48,7 +48,7 @@ def step_gaps(arch, mesh, storage, condition=False):
     opt = make_optimizer(cfg.optimizer)
     state = {"params": model.load_jax_params(cfg, first["params"]),
              "opt": model.load_jax_opt_state(cfg, opt, first["opt"])}
-    step = build_train_step(cfg, opt)
+    step = build_train_step(cfg, None, None, opt)
     out = []
     for i, jb in enumerate(jbatches):
         state, metrics = step(state, port_batch(jb))
