@@ -78,7 +78,21 @@ kernels:
   and the H100 roofline's bound beside the measured step and its MFU; then
   the production grid of both layouts (16 x 16 and 2 x 16 x 16) but its two
   slowest train cells, each cell traced or skipped with the shape table's
-  reason, the records in ``out/dryrun_l.jsonl``.
+  reason (the memory from rank 0's sharded step in a fake world of the
+  layout's ranks: every cell gets a verdict; the two layouts in two
+  processes at once), the records in ``out/dryrun_l.jsonl``;
+* the sharded step (phase m) on a 1 x 1 ``DeviceMesh`` over NCCL:
+  ``decode_attention_lse`` against its plain version, llama3.2-1b's and
+  roberta-large's train steps and llama3.2-1b's and kimi-k2's engines
+  against the plain ones (bit-equal steps, identical tokens, gated times);
+* its second half (phase n) on the same kind of mesh:
+  ``decode_attention_lse`` at gemma2-9b's ring (hd 256, softcap 50) and
+  mixtral-8x7b's (hd 128), each ring also cut into four slices merged by
+  their log-sum-exps; the sharded engines of gemma2-9b (ring cache),
+  whisper-base (encoder, cross attention) and mamba2-370m (SSD) against
+  the plain ones (identical tokens and launches by kernel and variant,
+  decode ms both ways); mamba2-370m's sharded train step bit-equal to the
+  plain one.
 
 It prints one line per phase, then a JSON line of per-kernel measurements,
 and last ``{"ok": true, "device": {...}}``. Kernel times (``ms``) are device
@@ -3015,6 +3029,16 @@ DRYRUN_FLOPS_RATIO = (0.75, 1.35)  # traced over analytic FLOPs, every traced ce
 DRYRUN_OUT = os.path.join("out", "dryrun_l.jsonl")
 
 
+def dry_run_layout(multi_pod: bool) -> list:
+    """``run_cell`` over every assigned arch x shape but DRYRUN_CLI_ONLY on
+    one production layout: the records, in order."""
+    from repro_torch.configs import assigned_archs
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import SHAPES_BY_NAME
+    return [run_cell(arch, name, multi_pod, verbose=False) for arch in assigned_archs()
+            for name in SHAPES_BY_NAME if (arch, name) not in DRYRUN_CLI_ONLY]
+
+
 def dry_run(dev, trained: dict) -> dict:
     """Phase (l). The dry run (``launch/dryrun.py``) of the two training
     steps of phase (k) on the card's own 1 x 1 layout at their batch and
@@ -3026,9 +3050,10 @@ def dry_run(dev, trained: dict) -> dict:
     ``run_cell`` over the production grid of both layouts (every assigned
     arch x shape but :data:`DRYRUN_CLI_ONLY`): each applicable cell traces,
     each skipped one gives the shape table's reason, and the records go to
-    :data:`DRYRUN_OUT`."""
+    :data:`DRYRUN_OUT`. The two layouts run in two processes at once
+    (:func:`dry_run_layout`)."""
     import torch
-    from repro_torch.configs import assigned_archs, get_config
+    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.config import SHAPES_BY_NAME, ShapeConfig, shape_applicable
@@ -3077,24 +3102,27 @@ def dry_run(dev, trained: dict) -> dict:
     os.makedirs(os.path.dirname(DRYRUN_OUT), exist_ok=True)
     grid = {}
     t1 = time.perf_counter()
+    # the two layouts' cells in two processes at once (host work on meta
+    # tensors; each traces rank 0 in a fake world of its own, no CUDA)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        layouts = [pool.submit(dry_run_layout, multi_pod) for multi_pod in (False, True)]
+        records = [r for job in layouts for r in job.result()]
     with open(DRYRUN_OUT, "w") as f:
-        for multi_pod in (False, True):
-            for arch in assigned_archs():
-                for name, shape in SHAPES_BY_NAME.items():
-                    if (arch, name) in DRYRUN_CLI_ONLY:
-                        continue
-                    rec = run_cell(arch, name, multi_pod, verbose=False)
-                    f.write(json.dumps(rec) + "\n")
-                    ok, why = shape_applicable(get_config(arch), shape)
-                    if rec["status"] != ("ok" if ok else "skipped") or (
-                            not ok and rec["reason"] != why):
-                        raise AssertionError(f"(l) {arch} x {name}: {rec}")
-                    if ok:
-                        r = rec["traced_over_analytic"]
-                        if not DRYRUN_FLOPS_RATIO[0] <= r <= DRYRUN_FLOPS_RATIO[1]:
-                            raise AssertionError(f"(l) {arch} x {name} [{rec['mesh']}]: "
-                                                 f"traced / analytic FLOPs {r}")
-                    grid.setdefault(rec["mesh"], []).append(rec)
+        for rec in records:
+            f.write(json.dumps(rec) + "\n")
+            arch, name = rec["arch"], rec["shape"]
+            ok, why = shape_applicable(get_config(arch), SHAPES_BY_NAME[name])
+            if rec["status"] != ("ok" if ok else "skipped") or (
+                    not ok and rec["reason"] != why):
+                raise AssertionError(f"(l) {arch} x {name}: {rec}")
+            if ok:
+                r = rec["traced_over_analytic"]
+                if not DRYRUN_FLOPS_RATIO[0] <= r <= DRYRUN_FLOPS_RATIO[1]:
+                    raise AssertionError(f"(l) {arch} x {name} [{rec['mesh']}]: "
+                                         f"traced / analytic FLOPs {r}")
+            grid.setdefault(rec["mesh"], []).append(rec)
     grid_s = time.perf_counter() - t1
     summary = {}
     for mesh, recs in grid.items():
@@ -3114,9 +3142,8 @@ def dry_run(dev, trained: dict) -> dict:
         say(f"(l) dry-run grid {mesh}: {m['cells']} cells traced, {m['skipped']} skipped "
             f"(the shape table's reasons), {m['fit']} fit {H100.hbm_bytes / 1e9:.0f} GB a "
             f"device; bottlenecks {bottlenecks}; not fitting: "
-            f"{', '.join(m['not_fitting']) or 'none'}; unresolved (over "
-            f"{H100.hbm_bytes / 1e9:.0f} GB with the trace's temp an upper bound): "
-            f"{', '.join(m['unresolved']) or 'none'} {tag}")
+            f"{', '.join(m['not_fitting']) or 'none'}; unresolved (fits_hbm null): "
+            f"{len(m['unresolved'])} {m['unresolved'] or ''} {tag}")
     say(f"(l) dry run: grid {grid_s:.2f} s, phase total {time.perf_counter() - t0:.2f} s "
         f"(records in {DRYRUN_OUT}; {sorted(DRYRUN_CLI_ONLY)} by the CLI)")
     return {"calibration": calib, "grid": summary}
@@ -3224,13 +3251,16 @@ def check_decode_lse(dev) -> dict:
     return row
 
 
-def sharded_train(dev, mesh, arch: str) -> dict:
+def sharded_train(dev, mesh, arch: str, shape=None, turns: int = SHARDED_TURNS,
+                  steps: int = SHARDED_STEPS, gate=SHARDED_TRAIN_GATE,
+                  tag: str = "(m)") -> dict:
     """One arch's training step at full width, plain and over the 1 x 1
     mesh, from one state (the sharded state wraps the plain state's
-    tensors): SHARDED_TURNS turns of SHARDED_STEPS steps each way, plain
-    first, on the same batches. The first turns' losses, grad norms, new
-    states and kernel launches must be equal; the median step time over
-    the turns is gated at SHARDED_TRAIN_GATE x the plain step's."""
+    tensors): ``turns`` turns of ``steps`` steps each way, plain first, on
+    the same batches, at ``shape`` = (B, S) (SHARDED_TRAIN's by default).
+    The first turns' losses, grad norms, new states and kernel launches
+    must be equal; the median step time over the turns is gated at
+    ``gate`` x the plain step's (None: printed, not gated)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
@@ -3241,7 +3271,7 @@ def sharded_train(dev, mesh, arch: str) -> dict:
     from repro_torch.models.param import distribute
     from repro_torch.optim import make_optimizer
     from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
-    B, S = SHARDED_TRAIN[arch]
+    B, S = shape or SHARDED_TRAIN[arch]
     cfg = get_config(arch)
     opt = make_optimizer(cfg.optimizer)
     rules = make_rules(cfg, ShapeConfig("t", S, B, "train"), layout_of(mesh))
@@ -3250,7 +3280,7 @@ def sharded_train(dev, mesh, arch: str) -> dict:
     wrapped = {k: tree_unflatten(state[k], [distribute(x, sp, mesh) for x, sp in zip(
         tree_leaves(state[k]), tree_leaves(specs[k]))]) for k in state}
     pipeline = SyntheticTokenPipeline(cfg, DataConfig(B, S))
-    batches = [pipeline.batch_at(i) for i in range(SHARDED_STEPS)]
+    batches = [pipeline.batch_at(i) for i in range(steps)]
     ways = {"plain": (build_train_step(cfg, None, None, opt), state,
                       [device_put_batch(b, dev) for b in batches]),
             "sharded": (build_train_step(cfg, mesh, rules, opt), wrapped,
@@ -3258,7 +3288,7 @@ def sharded_train(dev, mesh, arch: str) -> dict:
     del state, wrapped  # the ways hold the first state until their first step
     times = {way: [] for way in ways}
     first = {}
-    for turn in range(SHARDED_TURNS):
+    for turn in range(turns):
         for way in list(ways):
             step, st, placed = ways[way]
             ways[way] = None  # each old state goes as soon as its step has run
@@ -3278,25 +3308,27 @@ def sharded_train(dev, mesh, arch: str) -> dict:
                 tree_leaves(ways["plain"][1]), tree_leaves(ways["sharded"][1])))
             (pm, pc), (sm, sc) = first["plain"], first["sharded"]
             if pm != sm or gap != 0.0:
-                raise AssertionError(f"(m) {arch}: the 1 x 1 sharded steps differ from the "
+                raise AssertionError(f"{tag} {arch}: the 1 x 1 sharded steps differ from the "
                                      f"plain steps: {sm} vs {pm}, state gap {gap:.3e}")
             if pc != sc:
-                raise AssertionError(f"(m) {arch}: kernel launches {sc} vs the plain "
+                raise AssertionError(f"{tag} {arch}: kernel launches {sc} vs the plain "
                                      f"steps' {pc}")
     med = {way: sorted(t)[len(t) // 2] for way, t in times.items()}
     ratio = med["sharded"] / med["plain"]
-    say(f"(m) training {arch} B {B} x S {S} on a 1 x 1 DeviceMesh (NCCL): {SHARDED_STEPS} "
+    say(f"{tag} training {arch} B {B} x S {S} on a 1 x 1 DeviceMesh (NCCL): {steps} "
         f"steps' losses, grad norms and states equal to the plain steps' (loss "
-        f"{' -> '.join('%.6f' % x['loss'] for x in sm)}), kernel launches {sc}; median "
-        f"step {med['sharded']:.4f} s vs plain {med['plain']:.4f} s over {SHARDED_TURNS} "
-        f"alternating turns of {SHARDED_STEPS}: ratio {ratio:.4f}")
-    if ratio > SHARDED_TRAIN_GATE:
-        raise AssertionError(f"(m) {arch}: sharded step {ratio:.4f} x the plain step's "
-                             f"> {SHARDED_TRAIN_GATE}")
+        f"{' -> '.join('%.6f' % x['loss'] for x in sm)}, grad norm "
+        f"{' -> '.join('%.6f' % x['grad_norm'] for x in sm)}), kernel launches {sc}; median "
+        f"step {med['sharded']:.4f} s vs plain {med['plain']:.4f} s over {turns} "
+        f"alternating turns of {steps}: ratio {ratio:.4f}")
+    if gate is not None and ratio > gate:
+        raise AssertionError(f"{tag} {arch}: sharded step {ratio:.4f} x the plain step's "
+                             f"> {gate}")
     del ways, first
     torch.cuda.empty_cache()
     return {"batch": B, "seq": S, "step_s": med["sharded"], "plain_step_s": med["plain"],
-            "ratio": ratio, "launches": sc}
+            "ratio": ratio, "launches": sc, "loss": sm[0]["loss"],
+            "grad_norm": sm[0]["grad_norm"]}
 
 
 def quartiles(xs) -> str:
@@ -3420,6 +3452,213 @@ def sharded_step(dev) -> dict:
                                    "library_ms", "library_err", "library_lse_gap",
                                    "decode_ms", "merge_err")},
             "trained": trained, "served": served, "comm_counts": comm}
+
+
+# (n) the sharded step's second half on the card, on a 1 x 1 DeviceMesh over
+# NCCL as in (m): decode_attention_lse at the ring caches that a sequence
+# split hands it, and the sharded engines and train step of the block kinds
+# (m) does not run, each against its plain twin. The ring shapes: (B, W, H,
+# KV, hd, softcap) of gemma2-9b's LOCAL blocks (the CUDA-core instance at hd
+# 256, softcap 50) and mixtral-8x7b's (hd 128); each ring is also cut into
+# RING_SLICES slices merged by log-sum-exp, RING_VALID of its slots valid
+# (slices of 1024, 1024, 952 and 0 valid slots)
+RING_LSE_CASES = {"gemma2": (4, 4096, 16, 8, 256, 50.0), "mixtral": (4, 4096, 32, 8, 128, 0.0)}
+RING_SLICES, RING_VALID = 4, 3000
+# (arch, layers (None: all), requests, prompt tokens, new tokens): the
+# serving table's batch, prompt and depth ((h), (i), (j)), 16 new tokens
+SHARDED_SERVE_N = [("gemma2-9b", None, 4, 4160, 16), ("whisper-base", None, 8, 32, 16),
+                   ("mamba2-370m", None, 8, 1024, 16)]
+SHARDED_TRAIN_N = ("mamba2-370m", 8, 1024)  # (arch, B, S): one step each way
+
+
+def check_ring_lse(dev) -> dict:
+    """decode_attention_lse at RING_LSE_CASES against its plain version
+    (every slot valid: the output within the bf16 attention tolerance, the
+    log-sum-exp within LSE_TOL), the ring cut into RING_SLICES slices merged
+    by their log-sum-exps (merge_partials' formula; one slice with no valid
+    slot: 0 and -inf) against the whole ring's decode kernel at RING_VALID,
+    and its device time beside the plain version's and flex_attention's
+    with its log-sum-exp. Returns a row a case."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    rng = np.random.default_rng(13)
+    rows = {}
+    for name, (B, W, H, KV, hd, cap) in RING_LSE_CASES.items():
+        label = f"(n) decode_attention_lse {name} ring B={B} W={W} H={H} KV={KV} hd={hd} " \
+                f"softcap={cap:g}"
+        sets = [tuple(randn(rng, s, "bfloat16", dev) for s in ((B, H, hd), (B, W, KV, hd),
+                                                                (B, W, KV, hd)))
+                for _ in range(DECODE_SETS)]
+        q, k, v = sets[0]
+        (o, lse), (po, plse) = (dec.decode_attention_lse(q, k, v, W, softcap=cap),
+                                dec.decode_attention_lse_plain(q, k, v, W, softcap=cap))
+        err = compare_close(o, po, ATTN_TOL["bfloat16"], label)
+        gap = float((lse - plse).abs().max())
+        if not gap <= LSE_TOL:
+            raise AssertionError(f"{label}: log-sum-exp gap {gap:.3e} > {LSE_TOL}")
+        n = W // RING_SLICES
+        parts = [dec.decode_attention_lse(q, k[:, a:a + n], v[:, a:a + n],
+                                          min(max(RING_VALID - a, 0), n), softcap=cap)
+                 for a in range(0, W, n)]
+        empty = [i for i, a in enumerate(range(0, W, n)) if RING_VALID <= a]
+        if not empty or not all((parts[i][0] == 0).all() and torch.isneginf(parts[i][1]).all()
+                                for i in empty):
+            raise AssertionError(f"{label}: a slice with no valid slot is not 0 and -inf")
+        m = torch.stack([lse for _, lse in parts]).amax(dim=0)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        w = [torch.exp(lse - m)[..., None] for _, lse in parts]
+        merged = (sum(wi * oi.float() for wi, (oi, _) in zip(w, parts)) / sum(w)).to(q.dtype)
+        merge_err = compare_close(merged, dec.decode_attention(q, k, v, RING_VALID, softcap=cap),
+                                  ATTN_TOL["bfloat16"],
+                                  f"{label}: {RING_SLICES} slices merged vs the whole ring")
+        flex = flex_library(cap, valid_len=W, Sq=1, Skv=W, dev=dev, lse=True)
+        lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)) for q, k, v in sets]
+        fo, flse = flex(*lib_sets[0])
+        flex_err = compare_close(fo[:, :, 0], po, ATTN_TOL["bfloat16"],
+                                 f"{label}: flex_attention with its log-sum-exp")
+        row = dict(
+            ms=device_ms([lambda s=s: dec.decode_attention_lse(*s, W, softcap=cap)
+                          for s in sets], calls=64),
+            plain_ms=device_ms([lambda s=s: dec.decode_attention_lse_plain(*s, W, softcap=cap)
+                                for s in sets], calls=8),
+            library_ms=device_ms([lambda s=s: flex(*s) for s in lib_sets], calls=64),
+            max_abs_err=err, lse_gap=gap, merge_err=merge_err, library_err=flex_err,
+            variant=dec.kernel_variant(q.dtype, hd))
+        nbytes = 2 * (2 * B * W * KV * hd + 2 * B * H * hd) + 4 * B * H  # + the lse
+        row["bound_ms"], row["bound_by"] = bound_ms(4 * B * H * hd * W, nbytes)
+        rows[name] = row
+        say(f"{label} bf16 ({row['variant']}): device {row['ms']:.5f} ms (plain version "
+            f"{row['plain_ms']:.5f} ms, flex_attention with its log-sum-exp "
+            f"{row['library_ms']:.5f} ms, gap {flex_err:.3e}; bound {row['bound_ms']:.5f} ms "
+            f"by {row['bound_by']}); against the plain version max abs gap {err:.3e}, lse gap "
+            f"{gap:.3e}; {RING_SLICES} slices of {n} ({RING_VALID} valid) merged vs the whole "
+            f"ring {merge_err:.3e}")
+        del sets, lib_sets, q, k, v, parts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_tally() -> dict:
+    """Every attention wrapper's launches by variant, now."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    return {fn.__name__: dict(fn.launches_by_variant)
+            for fn in (fa.flash_attention, fa.flash_attention_lse, dec.decode_attention,
+                       dec.decode_attention_lse)}
+
+
+def sharded_serve_pair(dev, mesh, arch: str, layers, B: int, S: int, n_out: int) -> dict:
+    """The sharded ServeEngine over the 1 x 1 mesh and the plain engine on
+    the same weights, their ServeEngine.streams stepped alternately (the
+    prefills, then each decode step timed alone between synchronizations):
+    identical tokens, and equal launches by kernel and variant (the flash
+    kernel's; the decode kernel's, the sharded engine's self attention
+    through decode_attention_lse and its cross attention through
+    decode_attention). Prints the decode ms a step each way and their
+    ratio, not gated."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.launch.steps import to_local
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    sharded = ServeEngine(cfg, S + n_out, B, device=dev, mesh=mesh)
+    plain = ServeEngine(cfg, S + n_out, B, device=dev, params=to_local(sharded.params))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["enc_embeds"] = randn(rng, (B, ENCODER_LEN[arch], cfg.d_model), "bfloat16", dev)
+    engines = {"plain": plain, "sharded": sharded}
+    streams = {way: eng.stream(toks, n_out, extra) for way, eng in engines.items()}
+    tally = {way: {} for way in engines}
+    tokens = {way: [] for way in engines}
+    ms = {way: [] for way in engines}
+
+    def step(way):
+        before = launch_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = next(streams[way], None)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        for fn, by in launch_tally().items():
+            for variant, n in by.items():
+                key = (fn, variant)
+                tally[way][key] = tally[way].get(key, 0) + n - before[fn][variant]
+        if tok is not None:
+            tokens[way].append(tok.cpu().numpy())
+        return dt
+
+    for way in engines:
+        step(way)  # the prefill and its token
+    for i in range(n_out):  # each next token runs one decode step
+        for way in (("plain", "sharded") if i % 2 == 0 else ("sharded", "plain")):
+            ms[way].append(step(way))
+    got, want = (np.concatenate(tokens[w], axis=1) for w in ("sharded", "plain"))
+    if got.shape != (B, n_out) or not np.array_equal(got, want):
+        raise AssertionError(f"(n) {arch}: the sharded engine's tokens differ from the plain "
+                             f"engine's at {int((got != want).sum())} places")
+
+    def by_kernel(t, name):
+        return {var: sum(n for (fn, v), n in t.items() if v == var and fn.startswith(name))
+                for var in ("tensor_core", "cuda_core")}
+
+    plain_t, shard_t = tally["plain"], tally["sharded"]
+    for name in ("flash_attention", "decode_attention"):
+        if by_kernel(shard_t, name) != by_kernel(plain_t, name):
+            raise AssertionError(f"(n) {arch}: {name} launches by variant "
+                                 f"{by_kernel(shard_t, name)} vs the plain engine's "
+                                 f"{by_kernel(plain_t, name)}")
+    lse = sum(n for (fn, _), n in shard_t.items() if fn == "decode_attention_lse")
+    plain_lse = sum(n for (fn, _), n in plain_t.items() if fn == "decode_attention_lse")
+    attends = cfg.num_layers and any(k != "mamba" for k in cfg.pattern)
+    if plain_lse or (attends and not lse) or (not attends and any(shard_t.values())):
+        raise AssertionError(f"(n) {arch}: launches {shard_t} vs the plain engine's {plain_t}")
+    med = {way: statistics.median(v) for way, v in ms.items()}
+    ratio = med["sharded"] / med["plain"]
+    nonzero = {f"{fn}/{v}": n for (fn, v), n in sorted(shard_t.items()) if n}
+    say(f"(n) serving {arch} ({cfg.num_layers} layers) {B} x {S}"
+        f"{f' (+ {ENCODER_LEN[arch]} encoder positions)' if extra else ''} + {n_out} on a 1 x 1 "
+        f"DeviceMesh: tokens identical to the plain engine's; launches by kernel and variant "
+        f"equal ({f'{nonzero}; the sharded self-attention decode through decode_attention_lse' if attends else 'no attention kernel either way'}); "
+        f"decode {med['sharded']:.3f} ms a step vs plain "
+        f"{med['plain']:.3f} ms (medians of {n_out} steps each way, alternating): ratio "
+        f"{ratio:.4f}")
+    del sharded, plain, engines, streams
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "decode_ms": med["sharded"],
+            "plain_decode_ms": med["plain"], "ratio": ratio, "lse_launches": lse,
+            "launches": nonzero}
+
+
+def sharded_second_half(dev) -> dict:
+    """Phase (n): a 1 x 1 DeviceMesh over NCCL (a world of one process),
+    decode_attention_lse at the ring shapes (check_ring_lse), the sharded
+    engines of SHARDED_SERVE_N against the plain ones, and mamba2-370m's
+    sharded train step against the plain one (bit-equal, one step each
+    way, not timed against a gate)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    t0 = time.perf_counter()
+    mesh = make_device_mesh(1, 1, "cuda")
+    try:
+        ring = check_ring_lse(dev)
+        served = {arch: sharded_serve_pair(dev, mesh, arch, layers, B, S, n)
+                  for arch, layers, B, S, n in SHARDED_SERVE_N}
+        arch, B, S = SHARDED_TRAIN_N
+        trained = sharded_train(dev, mesh, arch, (B, S), turns=1, steps=1, gate=None,
+                                tag="(n)")
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    say(f"(n) the sharded step's second half on the card: phase total {seconds:.2f} s")
+    return {"ring": ring, "served": served, "trained": {arch: trained}, "seconds": seconds}
 
 
 def main() -> int:
@@ -3671,6 +3910,13 @@ def main() -> int:
 
     # 10. (m) the sharded step on a 1 x 1 DeviceMesh over NCCL
     lse_row = sharded_step(dev)
+
+    # 11. (n) its second half: the ring caches' decode_attention_lse, the SSD,
+    # sliding-window and cross-attention engines and mamba2-370m's training
+    second = sharded_second_half(dev)
+    lse_row["ring"] = second["ring"]
+    lse_row["served_second_half"] = second["served"]
+    lse_row["trained_second_half"] = second["trained"]
 
     kernels = [{
         "name": "polca_tick",

@@ -54,6 +54,8 @@ def decode_attention_lse(q, k, v, valid_len, *, softcap=0.0):
     :func:`~repro_torch.kernels.decode_attention.decode_attention_lse_plain`
     on CPU tensors. A cache split by sequence merges its slices' outputs by
     these (``models.attention.merge_partials``)."""
+    if q.device.type == "meta":
+        return _traced.decode_attention_lse(q, k, v, int(valid_len), float(softcap))
     fn = (_dec.decode_attention_lse_plain if q.device.type == "cpu"
           else _dec.decode_attention_lse)
     return fn(q, k, v, valid_len, softcap=softcap)

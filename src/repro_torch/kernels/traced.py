@@ -12,7 +12,9 @@ write (at a 32k-token prefill, hundreds of GB). So on ``meta`` tensors
 * ``repro_torch::flash_attention_lse``: the training forward (with the
   row log-sum-exp);
 * ``repro_torch::flash_attention_bwd``: the gradient kernels;
-* ``repro_torch::decode_attention``: the decode kernel.
+* ``repro_torch::decode_attention``: the decode kernel;
+* ``repro_torch::decode_attention_lse``: the decode kernel with the row
+  log-sum-exp (a sequence-split cache's slices).
 
 Each op's fake (``register_fake``) gives outputs of the kernel's shapes and
 dtypes and allocates nothing else, and each has a flop formula
@@ -126,6 +128,24 @@ def _(q, k, v, valid_len, softcap):
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _(q_shape, k_shape, v_shape, valid_len, softcap, *args, **kwargs) -> int:
+    B, H, hd = q_shape
+    return 4 * B * H * hd * int(valid_len)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=())
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int,
+                         softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    _refuse("decode_attention_lse", q)
+
+
+@decode_attention_lse.register_fake
+def _(q, k, v, valid_len, softcap):
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention_lse)
 def _(q_shape, k_shape, v_shape, valid_len, softcap, *args, **kwargs) -> int:
     B, H, hd = q_shape
     return 4 * B * H * hd * int(valid_len)

@@ -24,21 +24,26 @@ from the layout and a data-less trace, on the CPU, allocating nothing:
    updates in place and returns, else 0: the train step returns a new tree
    and donates nothing.
 2. **Trace.** Rank 0's step runs on ``meta`` tensors at full width, every
-   layer, at rank 0's share of the global batch (the batch over the batch
-   axes ``make_rules`` keeps), under a live-bytes count of every storage
-   the step allocates and ``FlopCounterMode``. The attention kernels take
-   their traceable ops (``kernels.traced``: outputs only, each kernel's own
-   flop count); an MoE block's dispatch, which reads its group sizes on the
-   card, splits the capacity evenly over the experts; the trace runs the
-   one-device expert layout (``slots = E``), while the arguments are laid
-   out in the mesh's slots. ``temp_bytes`` is the traced peak less the
-   trace's own inputs and its new outputs; when the model axis or FSDP
-   splits the weights, the trace still holds them (their casts and
-   gradients) whole, so it is then an upper bound (``temp_basis``). The
-   traced FLOPs, spread evenly over the devices that share rank 0's batch
-   (the model axis), are ``hlo_flops_per_device`` beside the analytic
-   ``flops_per_device``; ``hlo_bytes_per_device`` is the bytes every eager
-   op of the trace reads and writes, spread the same way.
+   layer, under a live-bytes count of every storage the step allocates and
+   ``FlopCounterMode``. The attention kernels take their traceable ops
+   (``kernels.traced``: outputs only, each kernel's own flop count); an MoE
+   block's dispatch, which reads its group sizes on the card, splits the
+   capacity evenly over its experts. Over a mesh of more than one device
+   the step traced for the memory is the sharded step (``models.model.
+   MeshCtx``) on rank 0's blocks of the weights, optimizer state, inputs
+   and caches, in a fake world of the layout's size (:func:`trace_rank`:
+   ``torch.distributed``'s ``fake`` backend, whose collectives give their
+   results' shapes and exchange nothing): its gathers, casts, activations
+   and gradients are the rank's own. ``temp_bytes`` is that trace's peak
+   less its inputs and its new outputs. The FLOPs are the one-device step's
+   on rank 0's share of the global batch (the batch over the batch axes
+   ``make_rules`` keeps; ``slots = E``), spread evenly over the devices
+   that share that batch (the model axis): ``hlo_flops_per_device`` beside
+   the analytic ``flops_per_device``; ``hlo_bytes_per_device`` is the bytes
+   every eager op of that trace reads and writes, spread the same way. The
+   sharded trace's own FLOPs (``rank_traced_flops``) count rank 0's share
+   of work the layout replicates over ``model`` (heads, KV heads or an SSM
+   the model axis does not divide) once a rank.
 3. **Collectives**, derived from the rules (:func:`derive_collectives`;
    :func:`count_collectives` counts those a real sharded step issues on a
    ``DeviceMesh``). Per step, a device runs:
@@ -56,7 +61,8 @@ from the layout and a data-less trace, on the CPU, allocating nothing:
      and the shared expert's ``w_down``, the SSM's ``w_out``, when the
      model axis splits their contraction dim; in training once for the
      forward, once for the recompute (remat) and once for the backward's
-     input gradient of the column-split products;
+     input gradient of the column-split products; and the SSM gate norm's
+     [B_local, S] float32 sum of squares over the same split;
    * MoE: the combine's psum over the model axis ([T_local, D]), or, for
      token-routed decode, an all-gather of the tokens over the batch axes
      and a psum over the data x model axes ([T_global, D]);
@@ -73,9 +79,7 @@ from the layout and a data-less trace, on the CPU, allocating nothing:
 4. **Roofline.** ``parallel.analytic.step_cost`` gives the FLOPs and HBM
    bytes a device (the kernels never write the scores), on the H100's
    constants; ``bytes_per_device = arg + temp + out - alias`` against the
-   card's 80 GB gives ``fits_hbm``. Where ``temp_bytes`` is an upper bound
-   and the sum is over 80 GB, the trace cannot tell: ``fits_hbm`` is then
-   ``None`` (unresolved), never ``False``.
+   card's 80 GB gives ``fits_hbm``, True or False for every cell.
 
 A model of more than three layer groups is traced at 2 and 3 groups and
 each count extrapolated linearly to its depth (``compile_unrolled_s``), as
@@ -95,6 +99,7 @@ model of at most three groups is traced whole (``compile_s``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -115,8 +120,8 @@ from repro_torch.configs import assigned_archs, get_config
 from repro_torch.launch.inputs import (batch_shards, cache_input_specs, input_specs,
                                       make_rules, split_seq)
 from repro_torch.launch.mesh import MeshLayout, layout_of, make_local_mesh, make_production_mesh
-from repro_torch.launch.steps import (abstract_state, build_serve_step, loss_and_grads,
-                                     model_param_specs)
+from repro_torch.launch.steps import (abstract_state, build_serve_step, decoder_slots,
+                                     loss_and_grads, model_param_specs, state_specs)
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import (MAMBA, SHAPES_BY_NAME, ModelConfig, ShapeConfig,
                                       shape_applicable)
@@ -192,19 +197,22 @@ class Trace:
     batch: int  # sequences traced
     seconds: float
     extrapolated: bool = False
+    args: int = 0  # bytes of the step's arguments the trace was given
 
 
-def _trace(fn, batch: int, outputs=lambda res: res) -> Trace:
+def _trace(fn, batch: int, outputs=lambda res: res, args=()) -> Trace:
     """``fn()`` under :class:`LiveBytes` and ``FlopCounterMode``;
-    ``outputs`` picks the step's outputs from its result."""
+    ``outputs`` picks the step's outputs from its result, ``args`` are the
+    trees of the step's arguments ``fn`` reads."""
     t0 = time.perf_counter()
     mem = LiveBytes()
     with FlopCounterMode(display=False) as flops, mem:
         res = fn()
     out_new = sum(t.untyped_storage().nbytes() for t in _unique_storages(outputs(res))
                   if mem.is_new(t))
+    n_args = sum(t.untyped_storage().nbytes() for t in _unique_storages(args))
     return Trace(float(flops.get_total_flops()), float(mem.accessed), mem.peak, out_new,
-                 mem.live, batch, time.perf_counter() - t0)
+                 mem.live, batch, time.perf_counter() - t0, args=n_args)
 
 
 def _trace_model(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> Trace:
@@ -245,26 +253,118 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> Trace:
     return _with_update(cfg, shape, m)
 
 
-def _with_update(cfg: ModelConfig, shape: ShapeConfig, m: Trace) -> Trace:
+def _with_update(cfg: ModelConfig, shape: ShapeConfig, m: Trace, mesh=None) -> Trace:
     """The step whose model part is ``m``: a train step's second part,
-    ``opt.update`` on the one-device state, is traced whole (its op count
-    does not depend on depth), and the step's peak is the larger of the
-    model part's and the gradients' bytes plus the update's."""
+    ``opt.update`` on the one-device state (on rank 0's blocks of the
+    ``DeviceMesh`` ``mesh``), is traced whole (its op count does not depend
+    on depth), and the step's peak is the larger of the model part's and
+    the gradients' bytes plus the update's."""
     if shape.kind != "train":
         return m
     opt = Optimizer(cfg.optimizer)
-    state = abstract_state(cfg, opt)
-    grads = abstract_state(cfg, None)["params"]
-    u = _trace(lambda: opt.update(grads, state["opt"], state["params"]), m.batch)
+    if mesh is None:
+        state = abstract_state(cfg, opt)
+        grads = abstract_state(cfg, None)["params"]
+        u = _trace(lambda: opt.update(grads, state["opt"], state["params"]), m.batch,
+                   args=state["opt"])
+    else:
+        layout = layout_of(mesh)
+        rules = make_rules(cfg, shape, layout)
+        ctx = model_mod.MeshCtx(mesh, rules)
+        specs = state_specs(cfg, layout, rules)["params"]
+        state = _tensors(abstract_state(cfg, opt, layout, rules), local=True)
+        grads = _tensors(abstract_state(cfg, None, layout, rules)["params"], local=True)
+        u = _trace(lambda: opt.update(grads, state["opt"], state["params"], ctx=ctx,
+                                      specs=specs), m.batch, args=state["opt"])
     return Trace(m.flops + u.flops, m.accessed + u.accessed, max(m.peak, m.end + u.peak),
                  m.out_new + u.out_new, m.end + u.end, m.batch, m.seconds + u.seconds,
-                 m.extrapolated)
+                 m.extrapolated, m.args + u.args)
 
 
-def _tensors(tree):
-    """The meta tensors of a tree of :class:`Sharded` leaves."""
+@contextlib.contextmanager
+def rank_world(layout: MeshLayout):
+    """A ``DeviceMesh`` of ``layout``'s axes over a fake process group of
+    ``layout.size`` ranks, this process rank 0 (``torch.distributed``'s
+    ``fake`` backend: every collective returns its result's shape and
+    exchanges nothing; no CUDA, no NCCL). Torn down on exit. Raises where a
+    process group is running: the trace then runs in a child process
+    (:func:`trace_rank`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is running; trace rank 0 in a child process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=layout.size)
+    try:
+        yield init_device_mesh("cpu", layout.axis_sizes, mesh_dim_names=layout.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _trace_rank_model(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Trace:
+    """:func:`_trace_model` of rank 0 of the ``DeviceMesh`` ``mesh``: the
+    sharded step (``models.model.MeshCtx``) on ``meta`` tensors of rank 0's
+    blocks of the parameters and inputs, as the rules lay them out."""
+    layout = layout_of(mesh)
+    rules = make_rules(cfg, shape, layout)
+    ctx = model_mod.MeshCtx(mesh, rules)
+    params = _tensors(abstract_state(cfg, None, layout, rules)["params"], local=True)
+    specs = input_specs(cfg, shape, layout, rules)
+    inputs = _tensors(specs, local=True)
+    batch = shape.global_batch // batch_shards(layout, rules)
+    if shape.kind == "train":
+        return _trace(lambda: loss_and_grads(cfg, params, inputs, ctx), batch,
+                      outputs=lambda r: r[0], args=(params, inputs))
+    if shape.kind == "prefill":
+        max_len = decoder_slots(cfg, shape.seq_len)
+        run = lambda: model_mod.prefill_fn(cfg, params, inputs, max_len, ctx)  # noqa: E731
+    else:
+        pos = split_seq(cfg, shape.seq_len)[1] - 1
+        slots = {b: e["k"].shape[2] for b, e in specs["cache"].items() if "k" in e}
+        run = lambda: model_mod.decode_fn(cfg, params, inputs["token"], pos,  # noqa: E731
+                                          inputs["cache"], ctx, slots)
+    with torch.no_grad():
+        return _trace(run, batch, args=(params, inputs))
+
+
+def _trace_rank(cfg: ModelConfig, shape: ShapeConfig, layout: MeshLayout) -> Trace:
+    with rank_world(layout) as mesh:
+        if cfg.num_groups <= 3:
+            m = _trace_rank_model(cfg, shape, mesh)
+        else:
+            m = extrapolate_trace(_trace_rank_model(grouped(cfg, 2), shape, mesh),
+                                  _trace_rank_model(grouped(cfg, 3), shape, mesh),
+                                  cfg.num_groups)
+        return _with_update(cfg, shape, m, mesh)
+
+
+def trace_rank(cfg: ModelConfig, shape: ShapeConfig, layout: MeshLayout) -> Trace:
+    """Rank 0's step of ``shape``'s kind over ``layout`` at full width: the
+    sharded step the port runs on a ``DeviceMesh`` of that layout, on
+    ``meta`` tensors of rank 0's blocks, in a fake world of the layout's
+    size (:func:`rank_world`), up to three layer groups whole, else at 2
+    and 3 groups and extrapolated, a train step with its ``opt.update``.
+    Where a process group is already running (a sharded run's), the trace
+    runs in a child process, which starts its own."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return _trace_rank(cfg, shape, layout)
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(_trace_rank, cfg, shape, layout).result()
+
+
+def _tensors(tree, local: bool = False):
+    """The meta tensors of a tree of :class:`Sharded` leaves; with
+    ``local``, new ones of rank 0's blocks (each leaf's ``shard_shape``)."""
     if isinstance(tree, dict):
-        return {k: _tensors(v) for k, v in tree.items()}
+        return {k: _tensors(v, local) for k, v in tree.items()}
+    if local:
+        return torch.empty(tree.shard_shape, dtype=tree.dtype, device="meta")
     return tree.tensor
 
 
@@ -293,7 +393,8 @@ def extrapolate_trace(t2: Trace, t3: Trace, groups: int) -> Trace:
         return a + (groups - 2) * (b - a)
     return Trace(ex(t2.flops, t3.flops), ex(t2.accessed, t3.accessed),
                  int(ex(t2.peak, t3.peak)), int(ex(t2.out_new, t3.out_new)),
-                 int(ex(t2.end, t3.end)), t2.batch, t2.seconds + t3.seconds, True)
+                 int(ex(t2.end, t3.end)), t2.batch, t2.seconds + t3.seconds, True,
+                 int(ex(t2.args, t3.args)))
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +484,10 @@ def derive_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, rules) -> Col
     for i, kind in enumerate(cfg.pattern):
         b = ("decoder", f"b{i}")
         if kind == MAMBA:
-            tp_all_reduce(split_axes(*b, "ssm", "w_out"), B_l * S, G)
+            axes = split_axes(*b, "ssm", "w_out", dim=1)
+            tp_all_reduce(axes, B_l * S, G)
+            # the gate norm's float32 sum of squares over the split channels
+            st.add("all-reduce", B_l * S * 4 * G * passes, _axes_n(mesh, axes), G * passes)
         else:
             tp_all_reduce(split_axes(*b, "attn", "wo"), B_l * S, G)
             if cfg.is_encoder_decoder:
@@ -431,12 +535,15 @@ def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int) -> Collec
     from repro_torch.models.param import distribute, pspec
     from repro_torch.parallel.collectives import CollectiveCounter
 
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
     layout = layout_of(mesh)
     dev = mesh.device_type
-    gen = torch.Generator(device=dev).manual_seed(seed)
     B, S = shape.global_batch, shape.seq_len
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev,
-                           dtype=torch.int32)
+    host = SyntheticTokenPipeline(cfg, DataConfig(B, S, seed)).batch_at(0)
+    inputs = {k: v.to(dev) for k, v in host.items() if k != "targets" or shape.kind == "train"}
+    tokens = inputs["tokens"]
+    pos = tokens.shape[1] + (cfg.num_image_embeds if "image_embeds" in inputs else 0)
 
     def place(x, rules):
         return distribute(x, pspec(rules.get("batch"), *([None] * (x.dim() - 1))), mesh)
@@ -444,10 +551,7 @@ def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int) -> Collec
     if shape.kind == "train":
         opt = Optimizer(cfg.optimizer)
         rules = make_rules(cfg, shape, layout)
-        batch = {"tokens": tokens}
-        if cfg.is_encoder_only:
-            batch["targets"] = tokens.flip(1)
-        batch = {k: place(v, rules) for k, v in batch.items()}
+        batch = {k: place(v, rules) for k, v in inputs.items()}
         step = build_train_step(cfg, mesh, rules, opt)
         state = init_state(cfg, opt, dev, seed, mesh, rules)
         with CollectiveCounter() as counter:
@@ -460,12 +564,13 @@ def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int) -> Collec
     params = init_state(cfg, None, dev, seed, mesh, rules)["params"]
     with torch.no_grad(), CollectiveCounter() as counter:
         _, cache = build_prefill_step(cfg, decode if shape.is_decode else prompt, mesh,
-                                      rules)(params, {"tokens": place(tokens, rules)})
+                                      rules)(params, {k: place(v, rules)
+                                                      for k, v in inputs.items()})
     if not shape.is_decode:
         return counter.stats
     params = init_state(cfg, None, dev, seed, mesh, d_rules)["params"]
     with torch.no_grad(), CollectiveCounter() as counter:
-        build_decode_step(cfg, mesh, d_rules)(params, place(tokens[:, -1:], d_rules), S,
+        build_decode_step(cfg, mesh, d_rules)(params, place(tokens[:, -1:], d_rules), pos,
                                               cache)
     return counter.stats
 
@@ -480,7 +585,7 @@ def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, seed: int = 0
     one and two groups and extrapolated to its depth
     (``extrapolate_collectives``), each group adding the same collectives.
     A decode shape counts one decode step after a prefill of ``seq_len``
-    tokens. It needs a running process group, so the dry run's CLI (which
+    positions. The inputs are the seeded pipeline's (``data.pipeline``). It needs a running process group, so the dry run's CLI (which
     lays out meta tensors and starts none) does not call it: it serves the
     port's sharded tests, which hold these counts to XLA's collectives and
     to :func:`derive_collectives` on a (2, 4) gloo mesh."""
@@ -527,45 +632,46 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True,
 
     shards = batch_shards(mesh, rules)
     tr = trace_step(cfg, shape, shape.global_batch // shards)
+    rank = trace_rank(cfg, shape, mesh) if n_dev > 1 else tr
     extrapolated = tr.extrapolated
-    temp_bytes = max(0, tr.peak - tr.out_new)
+    temp_bytes = max(0, rank.peak - rank.out_new)
     sharing = n_dev // shards  # devices that share rank 0's batch
-    split = [k for k in ("heads", "mlp", "vocab", "embed", "expert_embed", "ssm_inner")
-             if entry_axes(rules.get(k))]
-    upper = bool(split) and n_dev > 1  # temp_bytes an upper bound
     enc_S, dec_S = split_seq(cfg, shape.seq_len)
     roof = build_roofline(cfg, shape, n_dev, enc_S, dec_S, collectives,
                           traced_flops_per_device=tr.flops / sharing,
                           traced_bytes_per_device=tr.accessed / sharing)
     bytes_per_dev = arg_bytes + temp_bytes + out_bytes - alias_bytes
-    fits = bytes_per_dev <= roof.chip.hbm_bytes
     rec.update(
         status="ok",
         lower_s=round(t_layout, 1),
-        compile_s=0.0 if extrapolated else round(tr.seconds, 1),
-        compile_unrolled_s=round(tr.seconds, 1) if extrapolated else 0.0,
+        compile_s=0.0 if extrapolated else round(tr.seconds + (rank is not tr) * rank.seconds, 1),
+        compile_unrolled_s=round(tr.seconds + (rank is not tr) * rank.seconds, 1)
+        if extrapolated else 0.0,
         arg_bytes=arg_bytes,
         temp_bytes=temp_bytes,
         out_bytes=out_bytes,
         alias_bytes=alias_bytes,
         bytes_per_device=bytes_per_dev,
-        fits_hbm=True if fits else None if upper else False,
+        fits_hbm=bytes_per_dev <= roof.chip.hbm_bytes,
         roofline=roof.to_dict(),
         chip=dataclasses.asdict(roof.chip),
         trace_batch=tr.batch,
         temp_basis=(
             f"traced peak of rank 0's step (full width, every layer, {tr.batch} of "
-            f"{shape.global_batch} sequences) less its inputs and new outputs"
-            + ("; extrapolated from 2 and 3 groups" if extrapolated else "")
-            + (f"; an upper bound: the rules split the weights ({', '.join(split)}) but the "
-               f"trace holds them whole" if upper else "")
-            + ("; the trace runs the one-device expert layout (slots = E), the "
-               "arguments the mesh's" if cfg.moe_num_experts and n_dev > 1 else "")),
-        flops_basis=(f"FlopCounterMode over rank 0's traced step, kernels by their own flop "
-                     f"count, spread over the {sharing} devices sharing its batch"),
+            f"{shape.global_batch} sequences"
+            + (f", the sharded step on its blocks of the {mesh.label} layout's weights, "
+               f"inputs and caches in a fake world of {n_dev} ranks" if n_dev > 1 else "")
+            + ") less its inputs and new outputs"
+            + ("; extrapolated from 2 and 3 groups" if extrapolated else "")),
+        flops_basis=(f"FlopCounterMode over the one-device step on rank 0's batch (the "
+                     f"one-device weights{', slots = E' if cfg.moe_num_experts else ''}), "
+                     f"kernels by their own flop count, spread over the {sharing} devices "
+                     f"sharing its batch"),
         traced_flops=tr.flops,
         traced_over_analytic=(tr.flops / sharing) / roof.flops_per_device
         if roof.flops_per_device else 0.0,
+        rank_traced_flops=rank.flops,
+        rank_arg_bytes=rank.args,
     )
     if verbose:
         log.info(f"[{rec['mesh']}] {arch} x {shape.name}: layout {t_layout:.1f}s trace "

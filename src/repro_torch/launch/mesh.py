@@ -19,9 +19,7 @@ real devices): axes ``("data", "model")``, NCCL on the card and gloo on
 the CPU, one process a rank. Under ``torchrun`` it joins the world the
 launcher set up (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``); alone it
 starts a world of one process. :func:`layout_of` is a ``DeviceMesh``'s
-:class:`MeshLayout`. The sharded step covers the archs whose blocks are
-plain self attention with a dense or MoE FFN; the others wait for ROADMAP
-Queue 1 item 4d.
+:class:`MeshLayout`. The sharded step covers every arch of the registry.
 """
 
 from __future__ import annotations

@@ -16,9 +16,8 @@ With ``--data-par``/``--model-par`` (or under ``torchrun``) the engine
 runs over a ``data x model`` ``DeviceMesh``, one rank a process (NCCL on
 the card, gloo with ``--device cpu``): the prefill under the serve rules,
 decode under the decode rules (a cache split by sequence over ``model``,
-token-routed experts); every rank ends with the same tokens. An arch
-outside the sharded step's slice raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 4d) and is never served unsharded instead.
+token-routed experts); every rank ends with the same tokens. Every arch
+of the registry is served so.
 
   torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --data-par 2 --model-par 4 --prompt 24 --out-tokens 8
@@ -44,10 +43,11 @@ from repro_torch.core.power_model import A100, ServerPower
 from repro_torch.core.workload import request_timing
 from repro_torch.device import resolve_device
 from repro_torch.launch.inputs import make_rules, split_seq
-from repro_torch.launch.mesh import layout_of, make_device_mesh, make_local_mesh
+from repro_torch.launch.mesh import layout_of, make_device_mesh
 from repro_torch.launch.steps import (build_decode_step, build_prefill_step, decoder_slots,
-                                     model_param_specs, state_specs, to_local)
+                                     model_param_specs, moe_shards, state_specs, to_local)
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.param import distribute, init_params, placements, pspec
 from repro_torch.obs.log import get_logger
@@ -74,8 +74,13 @@ class ServeEngine:
     The two differ only in the MoE expert weights (gather mode splits the
     expert slots over ``model`` and their d_model dim over the data axes,
     token routing splits the slots over every axis), which are resharded
-    when the phase changes (:meth:`_laid_out`), a whole leaf at a time. The
-    prefill writes the cache in the decode rules' layout (``kv_seq``).
+    when the phase changes (:meth:`_laid_out`), a whole leaf at a time.
+    Where the two expert-parallel domains cut the experts into different
+    slots (mixtral's 8 experts: whole over a model axis of 8, halves over
+    16 ranks), the leaf's slots are mapped through whole experts
+    (``moe.from_slots``, ``moe.to_slots``): a permutation of the same
+    values, so a round trip gives the same bits. The prefill writes the
+    cache in the decode rules' layout (``kv_seq``).
     ``params``, whole tensors of the layout the seed would draw, are taken
     instead of drawing them (two engines sharing one model's weights)."""
 
@@ -97,11 +102,11 @@ class ServeEngine:
         self.decode_rules = make_rules(cfg, ShapeConfig("serve", max_len, batch, "decode"),
                                        layout)
         self.rules = {**make_rules(cfg, prefill, layout), "kv_seq": self.decode_rules["kv_seq"]}
-        model_mod.check_sharded(cfg, model_mod.MeshCtx(mesh, self.decode_rules))
         whole = params if params is not None else init_params(
             model_mod.cast_weights(cfg, model_param_specs(cfg, mesh, self.rules)), gen)
-        self.specs = {phase: state_specs(cfg, mesh, rules)["params"]
-                      for phase, rules in (("prefill", self.rules), ("decode", self.decode_rules))}
+        phases = (("prefill", self.rules), ("decode", self.decode_rules))
+        self.specs = {phase: state_specs(cfg, mesh, rules)["params"] for phase, rules in phases}
+        self.moe_shards = {phase: moe_shards(mesh, rules) for phase, rules in phases}
         self.params = _relayout(whole, self.specs["prefill"], mesh)
         self.phase = "prefill"
         self.prefill = build_prefill_step(cfg, prefill, mesh, self.rules)
@@ -174,22 +179,37 @@ class ServeEngine:
         local blocks as they are), the leaves whose placements differ
         resharded first when the phase changes."""
         if phase != self.phase:
-            self.params = _relayout(self.params, self.specs[phase], self.mesh)
+            experts = (self.cfg, self.moe_shards[self.phase], self.moe_shards[phase])
+            self.params = _relayout(self.params, self.specs[phase], self.mesh, experts)
             self.phase = phase
         return to_local(self.params)
 
 
-def _relayout(tree, specs, mesh):
+# the MoE leaves laid out in expert slots, and the dim of each that holds
+# the FFN chunk (moe.to_slots)
+EXPERT_LEAVES = {"wg": -1, "wu": -1, "wd_": -2}
+
+
+def _relayout(tree, specs, mesh, experts=None, name: str = ""):
     """``tree`` (whole tensors, or DTensors) as DTensors of this rank's
     blocks by ``specs``: a DTensor already so placed is kept as it is,
     another is made whole (``collectives.full_tensor``) and cut again, one
-    leaf at a time."""
+    leaf at a time. ``experts`` = (cfg, n_from, n_to): the expert leaves go
+    from the slots of an expert-parallel domain of ``n_from`` ranks to those
+    of ``n_to`` (``moe.moe_layout``), through whole experts where the two
+    differ."""
     if isinstance(tree, dict):
-        return {k: _relayout(tree[k], specs[k], mesh) for k in tree}
+        return {k: _relayout(tree[k], specs[k], mesh, experts, k) for k in tree}
+    remap = (experts is not None and name in EXPERT_LEAVES
+             and moe.moe_layout(experts[0], experts[1]) != moe.moe_layout(experts[0], experts[2]))
     if isinstance(tree, DTensor):
-        if tuple(tree.placements) == tuple(placements(specs, mesh)):
+        if not remap and tuple(tree.placements) == tuple(placements(specs, mesh)):
             return tree
         tree = coll.full_tensor(tree)
+    if remap:
+        cfg, n_from, n_to = experts
+        whole = moe.from_slots(tree, cfg, n_from, EXPERT_LEAVES[name])
+        tree = moe.to_slots(whole, cfg, n_to, EXPERT_LEAVES[name]).contiguous()
     return distribute(tree, specs, mesh)
 
 
@@ -212,9 +232,6 @@ def main(argv=None):
         max_len += cfg.num_image_embeds
     mesh = None
     if args.data_par * args.model_par > 1 or "WORLD_SIZE" in os.environ:
-        layout = make_local_mesh(args.data_par, args.model_par)
-        rules = make_rules(cfg, ShapeConfig("serve", max_len, args.requests, "decode"), layout)
-        model_mod.check_sharded(cfg, model_mod.MeshCtx(layout, rules))
         mesh = make_device_mesh(args.data_par, args.model_par, args.device)
     eng = ServeEngine(cfg, max_len, args.requests, device=args.device, mesh=mesh)
 

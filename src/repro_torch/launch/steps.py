@@ -7,9 +7,8 @@ the tensors' device, one card. Given a ``torch.distributed`` ``DeviceMesh``
 (``launch.mesh.make_device_mesh``) and rules (``launch.inputs.make_rules``),
 its state, inputs, cache and outputs are ``DTensor``s laid out by the
 rules, and it runs the model on each rank's local blocks
-(``models.model.MeshCtx``); the kernels only ever see plain tensors. The
-archs whose blocks are not plain self attention raise there (ROADMAP
-Queue 1 item 4d).
+(``models.model.MeshCtx``); the kernels only ever see plain tensors. Every
+arch of the registry runs so.
 
 The abstract state is shapes and dtypes on the ``meta`` device; given a
 mesh (a layout or a ``DeviceMesh``) and rules, each leaf also carries its
@@ -44,11 +43,15 @@ def model_param_specs(cfg: ModelConfig, mesh=None, rules: Optional[Rules] = None
     E``), the one the port's steps run."""
     if mesh is None:
         return model_mod.model_specs(cfg)
+    return model_mod.model_specs(cfg, axis_sizes(mesh)["model"], moe_shards(mesh, rules))
+
+
+def moe_shards(mesh, rules: Optional[Rules]) -> int:
+    """The ranks of the expert-parallel domain under ``rules``: the model
+    axis, or data x model for token-routed decode (``moe_mode`` "token")."""
     sizes = axis_sizes(mesh)
-    moe_shards = 0
-    if rules is not None and rules.get("moe_mode") == "token":
-        moe_shards = sizes["data"] * sizes["model"]
-    return model_mod.model_specs(cfg, sizes["model"], moe_shards)
+    token = rules is not None and rules.get("moe_mode") == "token"
+    return sizes["data"] * sizes["model"] if token else sizes["model"]
 
 
 def abstract_state(cfg: ModelConfig, opt: Optional[Optimizer], mesh=None,
@@ -90,11 +93,11 @@ def loss_and_grads(cfg: ModelConfig, params, batch, ctx=None):
         if ctx is not None:
             tree = ctx.synced(tree, model_mod.mesh_specs(cfg, ctx))
         loss = model_mod.loss_fn(cfg, tree, batch, ctx)
-        objective = loss if ctx is None else loss / ctx.world
+        objective = loss if ctx is None or ctx.world == 1 else loss / ctx.world
         grads = torch.autograd.grad(objective, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     loss = loss.detach()
-    if ctx is not None:
+    if ctx is not None and ctx.world > 1:
         loss = coll.all_reduce(loss, ctx.everyone) / ctx.world
     return loss, tree_unflatten(params, grads)
 
@@ -145,7 +148,7 @@ def build_train_step(cfg: ModelConfig, mesh, rules: Optional[Rules], opt: Optimi
 
         return train_step
 
-    ctx = _sharded_ctx(cfg, mesh, rules)
+    ctx = model_mod.MeshCtx(mesh, rules)
     specs = state_specs(cfg, mesh, rules)["params"]
 
     def sharded_train_step(state, batch):
@@ -164,12 +167,6 @@ def decoder_slots(cfg: ModelConfig, seq_len: int) -> int:
     ``cache_len`` of the decoder's share (:func:`~repro_torch.launch.inputs.
     split_seq`; an encoder-decoder model gives the encoder its part)."""
     return model_mod.cache_len(inputs_mod.split_seq(cfg, seq_len)[1])
-
-
-def _sharded_ctx(cfg: ModelConfig, mesh, rules: Rules):
-    ctx = model_mod.MeshCtx(mesh, rules)
-    model_mod.check_sharded(cfg, ctx)
-    return ctx
 
 
 def _placed(x, spec, ctx):
@@ -193,9 +190,9 @@ def _logits_out(cfg, logits, ctx):
     return _placed(logits, spec, ctx)
 
 
-def _cache_out(cfg, cache, ctx, B: int, T: int):
+def _cache_out(cfg, cache, ctx, B: int, T: int, enc_S: int):
     """The rank's cache blocks as DTensors laid out by the rules."""
-    specs = model_mod.cache_specs(cfg, B, T)
+    specs = model_mod.cache_specs(cfg, B, T, enc_S)
     return {blk: {name: _placed(x, resolve_spec(specs[blk][name].shape,
                                                 specs[blk][name].logical, ctx.rules, ctx.mesh),
                                 ctx)
@@ -217,13 +214,14 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
 
         return prefill_step
 
-    ctx = _sharded_ctx(cfg, mesh, rules)
+    ctx = model_mod.MeshCtx(mesh, rules)
 
     def sharded_prefill_step(params, batch):
         logits, cache = model_mod.prefill_fn(cfg, to_local(params), to_local(batch), max_len,
                                              ctx)
         B = batch["tokens"].shape[0]  # the global batch
-        return _logits_out(cfg, logits, ctx), _cache_out(cfg, cache, ctx, B, max_len)
+        enc_S = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+        return _logits_out(cfg, logits, ctx), _cache_out(cfg, cache, ctx, B, max_len, enc_S)
 
     return sharded_prefill_step
 
@@ -238,11 +236,12 @@ def build_decode_step(cfg: ModelConfig, mesh=None, rules: Optional[Rules] = None
 
         return decode_step
 
-    ctx = _sharded_ctx(cfg, mesh, rules)
+    ctx = model_mod.MeshCtx(mesh, rules)
 
     def sharded_decode_step(params, token, pos, cache):
+        slots = {blk: e["k"].shape[2] for blk, e in cache.items() if "k" in e}
         logits, _ = model_mod.decode_fn(cfg, to_local(params), to_local(token), pos,
-                                        to_local(cache), ctx)
+                                        to_local(cache), ctx, slots)
         return _logits_out(cfg, logits, ctx), cache
 
     return sharded_decode_step

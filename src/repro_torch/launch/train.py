@@ -19,9 +19,8 @@ stderr through the shared logger.
 With ``--data-par``/``--model-par`` (or under ``torchrun``) the step runs
 over a ``data x model`` ``DeviceMesh``, one rank a process (NCCL on the
 card, gloo with ``--device cpu``), its state and batches DTensors laid out
-by the train rules (``make_rules``); the checkpoints hold whole arrays. An
-arch outside the sharded step's slice raises ``NotImplementedError``
-(ROADMAP Queue 1 item 4d) and never trains unsharded instead.
+by the train rules (``make_rules``); the checkpoints hold whole arrays.
+Every arch of the registry trains so.
 
   torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --steps 4 --batch 8 --seq 64 --device cpu --data-par 2 --model-par 4
@@ -41,7 +40,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.inputs import make_rules
 from repro_torch.launch.mesh import layout_of, make_device_mesh, make_local_mesh
 from repro_torch.launch.steps import build_train_step, init_state
-from repro_torch.models import model as model_mod
 from repro_torch.models.config import ShapeConfig
 from repro_torch.obs.log import get_logger
 from repro_torch.optim import make_optimizer
@@ -81,7 +79,6 @@ def run(argv=None):
     if args.data_par * args.model_par > 1 or "WORLD_SIZE" in os.environ:
         layout = make_local_mesh(args.data_par, args.model_par)
         rules = make_rules(cfg, ShapeConfig("cli_train", args.seq, args.batch, "train"), layout)
-        model_mod.check_sharded(cfg, model_mod.MeshCtx(layout, rules))
         mesh = make_device_mesh(args.data_par, args.model_par, device)
     state = init_state(cfg, opt, device, mesh=mesh, rules=rules)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))

@@ -14,7 +14,9 @@ Over a mesh (a ``MeshCtx``, ``ctx``) the weights are a rank's working
 blocks: its query heads, and its KV heads or, where the model axis does not
 divide them, all of them (:func:`head_layout`). The kernels run on the
 rank's heads, ``wo``'s split contraction is all-reduced, and decode over a
-sequence-split cache merges each rank's partial result by its log-sum-exp.
+sequence-split cache (a global block's, or a LOCAL block's ring) merges
+each rank's partial result by its log-sum-exp. The cross attention's K/V
+are split on their KV heads as its weights are.
 """
 
 from __future__ import annotations
@@ -120,32 +122,39 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions, causal: bool,
     return y
 
 
-def cross_attention(cfg: ModelConfig, p: dict, x, enc_kv):
+def cross_attention(cfg: ModelConfig, p: dict, x, enc_kv, ctx=None):
     """Decoder cross-attention over the encoder's K/V (no mask, no RoPE).
 
     x: [B, Sq, D]; enc_kv: (k, v), each [B, enc_S, KV, hd]. Every query
     attends every encoder position: the flash kernel with ``causal=False``
     over Sq decoder positions, or for one position (a decode step) the
-    decode kernel at ``valid_len = enc_S``. Returns [B, Sq, D]."""
+    decode kernel at ``valid_len = enc_S``. Returns [B, Sq, D]. Over a mesh
+    ``p`` and ``enc_kv`` hold the rank's heads (:func:`project_cross_kv`),
+    each query head attends the KV heads it reads, and ``wo``'s split
+    contraction is all-reduced."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cfg.activation_dtype))
-    k, v = enc_kv
+    hg, _, kv = head_layout(cfg, ctx)
+    k, v = enc_kv[0][:, :, kv], enc_kv[1][:, :, kv]
     if q.shape[1] == 1:
         out = ops.decode_attention(q[:, 0], k, v, k.shape[1],
                                    softcap=cfg.attn_logit_softcap)[:, None]
     else:
         out = ops.flash_attention(q, k, v, causal=False,
                                   softcap=cfg.attn_logit_softcap)
-    return _out_proj(cfg, p, out)
+    return coll.all_reduce(_out_proj(cfg, p, out), hg)
 
 
 def project_cross_kv(cfg: ModelConfig, p: dict, enc_out):
     """The cross-attention K/V of the encoder output [B, enc_S, D]: (k, v),
-    each [B, enc_S, KV, hd], without RoPE."""
+    each [B, enc_S, KV, hd], without RoPE. Over a mesh, the KV heads of the
+    rank's ``wk``/``wv`` blocks: its own where the rules split them, else
+    all of them (the GQA fallback), as the cross cache holds them."""
     return _project_kv(cfg, p, enc_out, None)
 
 
 def decode_self_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
-                          pos: int, *, window: int = 0, ctx=None):
+                          pos: int, *, window: int = 0, ctx=None,
+                          n_slots: Optional[int] = None):
     """Single-token decode against a KV cache.
 
     x: [B, 1, D]; cache_k/v: [B, T, KV, hd]; ``pos`` is a host int (tokens
@@ -159,42 +168,10 @@ def decode_self_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
     ``t > pos - W`` keeps every slot ``0 .. pos``. Returns (y [B,1,D],
     cache_k, cache_v).
 
-    Over a mesh (``ctx``) the weights and the cache are a rank's blocks.
-    The new token's K/V (every KV head) go to the rank whose cache slice
-    holds ``pos``. Where the rules split the cache by sequence, each rank
-    attends its slice for every query head (the query gathered over the
-    heads' group) at its own valid length ``clamp(pos + 1 - r T, 0, T)``
-    (slice r of T slots) through ``ops.decode_attention_lse``, the slices
-    are merged (:func:`merge_partials`) and the rank keeps its own heads;
-    else its heads attend the KV heads they read in the whole cache.
+    Over a mesh (``ctx``) the weights and the cache are a rank's blocks
+    (:func:`_decode_cached`; ``n_slots`` the cache's slots over the mesh).
     """
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = _project_q(cfg, p, x, positions)[:, 0]
-    k_new, v_new = _project_kv(cfg, p, x, positions)
-    hg, kg, kv = head_layout(cfg, ctx)
-    T = cache_k.shape[1]
-    seq = None if ctx is None else ctx.local_group(T, "kv_seq")
-    t0 = (seq.index if seq else 0) * T
-    k_new, v_new = coll.all_gather(k_new, kg, 2), coll.all_gather(v_new, kg, 2)
-    if t0 <= pos < t0 + T:
-        cache_k[:, pos - t0] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos - t0] = v_new[:, 0].to(cache_v.dtype)
-    valid = min(max(pos + 1 - t0, 0), T)
-    ck, cv = cache_k.to(q.dtype), cache_v.to(q.dtype)
-    cap = cfg.attn_logit_softcap
-    if ctx is None:
-        out = ops.decode_attention(q, ck, cv, valid, softcap=cap)
-    elif seq is None:
-        out, _ = ops.decode_attention_lse(q, ck[:, :, kv], cv[:, :, kv], valid, softcap=cap)
-    else:
-        out, lse = ops.decode_attention_lse(coll.all_gather(q, hg, 1), ck, cv, valid,
-                                            softcap=cap)
-        out = merge_partials(out, lse, seq)
-        if hg is not None:
-            n = out.shape[1] // hg.size
-            out = out[:, hg.index * n:(hg.index + 1) * n]
-    return coll.all_reduce(_out_proj(cfg, p, out[:, None]), hg), cache_k, cache_v
+    return _decode_cached(cfg, p, x, cache_k, cache_v, pos, pos, pos + 1, ctx, n_slots)
 
 
 def merge_partials(o, lse, group: Optional[coll.Group]):
@@ -213,7 +190,8 @@ def merge_partials(o, lse, group: Optional[coll.Group]):
 
 
 def decode_ring_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
-                          pos: int, window: int):
+                          pos: int, window: int, ctx=None,
+                          n_slots: Optional[int] = None):
     """Single-token decode against a ring-buffer KV cache of ``window`` = W
     slots (a LOCAL block's), in place.
 
@@ -227,14 +205,56 @@ def decode_ring_attention(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
     the plain decode attention over the first ``valid_len`` slots, the same
     kernel as :func:`decode_self_attention`. Returns (y [B,1,D], cache_k,
     cache_v).
+
+    Over a mesh whose rules split the ring by sequence (``kv_seq``), rank r
+    holds slots ``[r W_l, (r + 1) W_l)``; the valid slots are a prefix of
+    the ring, so each slice's are a prefix of the slice, and the slices
+    merge by their log-sum-exps (:func:`_decode_cached`).
     """
+    return _decode_cached(cfg, p, x, cache_k, cache_v, pos, pos % window,
+                          min(pos + 1, window), ctx, n_slots)
+
+
+def _decode_cached(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos: int, slot: int,
+                   n_valid: int, ctx, n_slots: Optional[int] = None):
+    """One decode step of the token at position ``pos`` whose K/V go to
+    cache slot ``slot``, attending the first ``n_valid`` slots, in place.
+
+    Over a mesh (``ctx``) the weights and the cache are a rank's blocks.
+    The new token's K/V (every KV head) go to the rank whose cache slice
+    holds ``slot``. Where the rules split the cache by sequence, each rank
+    attends its slice for every query head (the query gathered over the
+    heads' group) at its own valid length ``clamp(n_valid - r T, 0, T)``
+    (slice r of T slots) through ``ops.decode_attention_lse``, the slices
+    are merged (:func:`merge_partials`) and the rank keeps its own heads;
+    else its heads attend the KV heads they read in the whole cache.
+    The group splitting the slots is the one the rules give ``n_slots``,
+    the cache's slots over the mesh (a rank's T slots alone would not say
+    whether the rules split them)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = _project_q(cfg, p, x, positions)
+    q = _project_q(cfg, p, x, positions)[:, 0]
     k_new, v_new = _project_kv(cfg, p, x, positions)
-    slot = pos % window
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
-    out = ops.decode_attention(q[:, 0], cache_k.to(q.dtype), cache_v.to(q.dtype),
-                               min(pos + 1, window), softcap=cfg.attn_logit_softcap)
-    return _out_proj(cfg, p, out[:, None]), cache_k, cache_v
+    hg, kg, kv = head_layout(cfg, ctx)
+    T = cache_k.shape[1]
+    seq = None if ctx is None else ctx.group(ctx.axes_for(n_slots, "kv_seq"))
+    t0 = (seq.index if seq else 0) * T
+    k_new, v_new = coll.all_gather(k_new, kg, 2), coll.all_gather(v_new, kg, 2)
+    if t0 <= slot < t0 + T:
+        cache_k[:, slot - t0] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - t0] = v_new[:, 0].to(cache_v.dtype)
+    valid = min(max(n_valid - t0, 0), T)
+    ck, cv = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    cap = cfg.attn_logit_softcap
+    if ctx is None:
+        out = ops.decode_attention(q, ck, cv, valid, softcap=cap)
+    elif seq is None:
+        out, _ = ops.decode_attention_lse(q, ck[:, :, kv], cv[:, :, kv], valid, softcap=cap)
+    else:
+        out, lse = ops.decode_attention_lse(coll.all_gather(q, hg, 1), ck, cv, valid,
+                                            softcap=cap)
+        out = merge_partials(out, lse, seq)
+        if hg is not None:
+            n = out.shape[1] // hg.size
+            out = out[:, hg.index * n:(hg.index + 1) * n]
+    return coll.all_reduce(_out_proj(cfg, p, out[:, None]), hg), cache_k, cache_v

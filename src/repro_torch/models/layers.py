@@ -15,16 +15,24 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
 
 
 def rmsnorm_spec(dim: int, logical=("act_embed",)) -> ParamSpec:
     return ParamSpec((dim,), logical, init="ones")
 
 
-def rmsnorm(x, w, eps: float):
+def rmsnorm(x, w, eps: float, group: Optional[coll.Group] = None):
+    """RMS norm over the last dim. With ``group`` that dim is split over
+    the group's ranks (``x`` and ``w`` the rank's block): the mean square
+    is the all-reduced sum of squares over the whole dim."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if group is None:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        var = coll.all_reduce(torch.sum(x * x, dim=-1, keepdim=True), group) / (
+            x.shape[-1] * group.size)
     x = x * torch.rsqrt(var + eps)
     return (x * w.float()).to(dtype)
 

@@ -60,16 +60,25 @@ with the exchanges the layout implies (``parallel.collectives``):
 * a vocab-split loss takes its log-sum-exp and gold logit by all-reduces
   over the vocab shards, a chunk of positions at a time, and never gathers
   the ``[B, S, V]`` logits;
-* decode over a cache split by sequence (``kv_seq``) writes the new K/V on
-  the rank whose slice holds ``pos``, runs the decode kernel over each
-  rank's slice with its own valid length, and merges the partial outputs
-  by their log-sum-exps (``ops.decode_attention_lse``).
+* decode over a cache split by sequence (``kv_seq``), a global block's or
+  a LOCAL block's ring, writes the new K/V on the rank whose slice holds
+  their slot, runs the decode kernel over each rank's slice with its own
+  valid length, and merges the partial outputs by their log-sum-exps
+  (``ops.decode_attention_lse``); the prefill keeps each rank's slice of
+  the slots;
+* an SSD block runs on the rank's heads and inner channels, its gate
+  norm's mean square and ``w_out`` all-reduced (``models.ssm``); its cache
+  keeps the rank's heads and channels;
+* the encoder runs on the rank's heads as the decoder does, its output
+  replicated over ``model``; cross attention reads the encoder K/V of the
+  rank's KV heads, which its cache keeps;
+* experts split into FFN chunks where the expert-parallel domain outnumbers
+  the expert groups (``moe.moe_layout``'s ``f_shards``); the chunks'
+  partial outputs are summed with the groups'.
 
 Every exchange over a group of one rank is skipped, so on a 1 x 1 mesh the
-sharded step computes what the one-device step computes. The sharded step
-covers the archs whose blocks are self attention with a dense or MoE FFN
-(:func:`check_sharded`); SSD blocks, ring caches, cross attention and the
-modality stubs wait for ROADMAP Queue 1 item 4d.
+sharded step computes what the one-device step computes. Every arch of
+the registry runs sharded.
 """
 
 from __future__ import annotations
@@ -174,8 +183,8 @@ class MeshCtx:
             pg = self.mesh.get_group(axes[0])
         elif len(axes) == len(self.sizes) and size == dist.get_world_size():
             pg = dist.group.WORLD  # the mesh in rank order: data outer
-        else:
-            raise NotImplementedError(f"a group over {axes} of {self.sizes}")
+        else:  # some of three axes (the multi-pod layout's batch axes, pod x data)
+            pg = self.mesh[axes]._flatten().get_group()
         index = 0
         for a in axes:
             index = index * self.sizes[a] + self.coords[a]
@@ -184,20 +193,6 @@ class MeshCtx:
     @property
     def everyone(self) -> Optional[coll.Group]:
         return self.group(tuple(self.sizes))
-
-    def local_group(self, local_dim: int, logical: str) -> Optional[coll.Group]:
-        """The group splitting a dim of logical name ``logical`` whose block
-        has ``local_dim`` entries: the longest prefix of the rule's axes that
-        ``resolve_spec`` keeps for the whole dim."""
-        def find():
-            axes = entry_axes(self.rules.get(logical))
-            for j in range(len(axes), 0, -1):
-                n = math.prod(self.sizes[a] for a in axes[:j])
-                if self.axes_for(local_dim * n, logical) == axes[:j]:
-                    return self.group(axes[:j])
-            return None
-
-        return self.memo(("local", local_dim, logical), find)
 
     def gather(self, tree, specs, stacked: bool = False):
         """Working weights of a rank's blocks ``tree`` (their ParamSpecs
@@ -248,25 +243,6 @@ def _set_in(tree, path: tuple, value):
     if not path:
         return value
     return {**tree, path[0]: _set_in(tree[path[0]], path[1:], value)}
-
-
-def check_sharded(cfg: ModelConfig, ctx: MeshCtx) -> None:
-    """Raise ``NotImplementedError`` for a model the sharded step does not
-    cover yet: blocks other than self attention (SSD, sliding window and its
-    ring cache), cross attention, the modality stubs, and an expert layout
-    that splits an expert's FFN (ROADMAP Queue 1 item 4d)."""
-    why = None
-    if any(kind != ATTN for kind in cfg.pattern):
-        why = f"blocks {sorted(set(cfg.pattern) - {ATTN})}"
-    elif cfg.is_encoder_decoder or cfg.frontend != "none":
-        why = "cross attention and the modality stubs"
-    elif cfg.moe_num_experts:
-        ep = ctx.world if ctx.rules.get("moe_mode") == "token" else ctx.n_model
-        if moe_mod.moe_layout(cfg, ep)[1] != 1:
-            why = f"{cfg.moe_num_experts} experts split over {ep} ranks"
-    if why:
-        raise NotImplementedError(f"{cfg.name}: the sharded step of {why} waits for "
-                                  f"ROADMAP Queue 1 item 4d")
 
 
 def mesh_specs(cfg: ModelConfig, ctx: MeshCtx) -> dict:
@@ -458,7 +434,8 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
     self attention (LOCAL: within the window) and, in an encoder-decoder
     model's decoder, cross attention over ``enc_out``; then the FFN."""
     if kind == MAMBA:
-        h = h + ssm_mod.ssm_forward(cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps))
+        h = h + ssm_mod.ssm_forward(cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps),
+                                    ctx=ctx)
     else:
         window = cfg.window_size if kind == LOCAL else 0
         a = attn_mod.self_attention(cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
@@ -469,7 +446,7 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
         if enc_out is not None:
             enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
             h = h + attn_mod.cross_attention(
-                cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
+                cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv, ctx)
     if _has_ffn(cfg, kind):
         h = _ffn_apply(cfg, bp, h, ctx)
     return h
@@ -520,17 +497,22 @@ def _remat(cfg, fn):
     return run
 
 
-def _run_encoder(cfg, params, enc_embeds):
+def _run_encoder(cfg, params, enc_embeds, ctx=None, specs=None):
     """The encoder over [B, enc_S, D] input embeddings: each layer
     bidirectional self attention (the flash kernel at ``causal=False``)
     and its FFN (recomputed in the backward pass per ``cfg.remat_policy``),
-    then ``enc_norm``. Returns [B, enc_S, D]."""
+    then ``enc_norm``. Returns [B, enc_S, D]. Over a mesh each layer's
+    stored splits are gathered inside its recompute region (``specs``: the
+    stacked encoder's ParamSpecs) and its blocks run on the rank's heads;
+    the output is replicated over ``model``."""
     h = enc_embeds.to(cfg.activation_dtype)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def layer(h, lp):
+        if ctx is not None:
+            lp = ctx.gather(lp, specs, stacked=True)
         return _block_forward(cfg, lp, ATTN, h, positions=positions, causal=False,
-                              enc_out=None)
+                              enc_out=None, ctx=ctx)
 
     layer = _remat(cfg, layer)
     for l in range(cfg.num_encoder_layers):
@@ -552,13 +534,15 @@ def _lookup(cfg, embed, tokens, ctx=None):
     return coll.all_reduce(h, group).to(cfg.activation_dtype)
 
 
-def _embed_inputs(cfg, params, batch, ctx=None):
+def _embed_inputs(cfg, params, batch, ctx=None, specs=None):
     """(h, enc_out): the token embeddings of ``batch["tokens"]`` [B, S], with
     a vision stub's ``batch["image_embeds"]`` [B, Ni, D] before them ([B,
     Ni + S, D] activations), and an encoder-decoder model's encoder output
-    of ``batch["enc_embeds"]`` (else None)."""
+    of ``batch["enc_embeds"]`` (else None). Over a mesh every input is the
+    rank's batch shard (``specs``: the model's ParamSpecs)."""
     act = cfg.activation_dtype
-    enc_out = (_run_encoder(cfg, params, batch["enc_embeds"])
+    enc_out = (_run_encoder(cfg, params, batch["enc_embeds"], ctx,
+                            None if ctx is None else specs["encoder"])
                if cfg.is_encoder_decoder else None)
     h = _lookup(cfg, params["embed"], batch["tokens"], ctx)
     if cfg.frontend == "vision_stub":
@@ -654,10 +638,9 @@ def loss_fn(cfg: ModelConfig, params, batch, ctx: Optional[MeshCtx] = None) -> t
     shards is the reference's loss; ``launch.steps.loss_and_grads``)."""
     specs = None
     if ctx is not None:
-        check_sharded(cfg, ctx)
         specs = mesh_specs(cfg, ctx)
         params = _gathered_top(cfg, params, ctx, specs)
-    h, enc_out = _embed_inputs(cfg, params, batch, ctx)
+    h, enc_out = _embed_inputs(cfg, params, batch, ctx, specs)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux: Optional[list] = [] if cfg.moe_num_experts else None
     h = _decoder_stack(cfg, params, h, positions=positions,
@@ -738,6 +721,22 @@ def cache_specs(cfg: ModelConfig, B: int, T: int, enc_S: int = 0) -> dict:
                          for i, kind in enumerate(cfg.pattern)}, cfg.num_groups)
 
 
+def _local_entry(cfg: ModelConfig, kind: str, B: int, Tc: int, enc_S: int, ctx) -> dict:
+    """:func:`_cache_entry`'s leaves as (shape, dtype) of a rank's blocks:
+    ``B`` is already the rank's batch; every other dim is cut as the rules
+    cut it (the slots on ``kv_seq``, the cross K/V on ``kv_heads``, the SSM
+    state and ``conv_x`` on their heads and channels)."""
+    out = {}
+    for name, spec in _cache_entry(cfg, kind, B, Tc, enc_S).items():
+        shape = spec.shape
+        if ctx is not None:
+            shape = shape[:1] + tuple(
+                n // math.prod(ctx.sizes[a] for a in ctx.axes_for(n, lg))
+                for n, lg in zip(shape[1:], spec.logical[1:]))
+        out[name] = (shape, spec.dtype)
+    return out
+
+
 def _ring_slots(S: int, W: int, device) -> torch.Tensor:
     """The prompt positions a W-slot ring holds after S >= W tokens, in slot
     order: slot i holds position ``S - W + ((i - (S - W)) mod W)``, the one
@@ -757,32 +756,32 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
     conv tails. A decoder block of an encoder-decoder model also attends
     the encoder output and caches its cross K/V.
 
-    With ``ctx`` (:func:`check_sharded`'s models), ``params`` and ``batch``
-    are the rank's blocks; the logits are the rank's block of the vocab,
-    and the cache is laid out by the rules' ``kv_seq``: a rank keeps the
-    prompt's K/V of the positions its slice of the ``max_len`` slots
-    holds."""
+    With ``ctx``, ``params`` and ``batch`` are the rank's blocks; the logits
+    are the rank's block of the vocab, and the cache is laid out by the
+    rules: by ``kv_seq`` a rank keeps the K/V of its slice of a block's
+    slots (of the ``max_len`` positions, of a LOCAL block's ring, or of its
+    short cache), by ``kv_heads`` its cross K/V heads, by ``ssm_heads`` and
+    ``ssm_inner`` its SSM state and ``conv_x`` tail."""
     specs = None
     if ctx is not None:
-        check_sharded(cfg, ctx)
         specs = mesh_specs(cfg, ctx)
         params = _gathered_top(cfg, params, ctx, specs)
-    h, enc_out = _embed_inputs(cfg, params, batch, ctx)
+    h, enc_out = _embed_inputs(cfg, params, batch, ctx, specs)
     B, S = h.shape[0], h.shape[1]
     enc_S = 0 if enc_out is None else enc_out.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    seq = None if ctx is None else ctx.group(ctx.axes_for(max_len, "kv_seq"))
-    T = max_len // (seq.size if seq else 1)  # a global block's slots on this rank
-    t0 = (seq.index if seq else 0) * T  # the position its first slot holds
-    blocks, cache = [], {}  # (window, ring slot positions or None) a block
+    blocks, cache = [], {}  # (window, the prompt positions of the rank's slots) a block
     for i, kind in enumerate(cfg.pattern):
         W = cfg.window_size if kind == LOCAL else 0
-        Tc = min(max_len, W) if W else T  # W when W <= S (<= max_len)
-        blocks.append((W, _ring_slots(S, W, h.device) if W and W <= S else None))
+        Tc = min(max_len, W) if W else max_len  # the block's slots; W when W <= S
+        seq = None if ctx is None else ctx.group(ctx.axes_for(Tc, "kv_seq"))
+        T = Tc // (seq.size if seq else 1)  # its slots on this rank
+        t0 = (seq.index if seq else 0) * T  # the first of them
+        ring = _ring_slots(S, W, h.device)[t0:t0 + T] if W and W <= S else None
+        blocks.append((W, ring if ring is not None else slice(t0, t0 + T)))
         cache[f"b{i}"] = {
-            name: torch.zeros((cfg.num_groups,) + spec.shape, dtype=spec.dtype,
-                              device=h.device)
-            for name, spec in _cache_entry(cfg, kind, B, Tc, enc_S).items()}
+            name: torch.zeros((cfg.num_groups,) + shape, dtype=dtype, device=h.device)
+            for name, (shape, dtype) in _local_entry(cfg, kind, B, Tc, enc_S, ctx).items()}
     for l in range(cfg.num_groups):
         gp = _layer(params["decoder"], l)
         if ctx is not None:
@@ -792,7 +791,7 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
             if kind == MAMBA:
                 y, (state, tails) = ssm_mod.ssm_forward(
                     cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps),
-                    return_state=True)
+                    return_state=True, ctx=ctx)
                 h = h + y
                 bc["state"][l] = state
                 for name in ("x", "B", "C"):
@@ -804,16 +803,14 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
                 if cfg.use_post_norm:
                     a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
                 h = h + a
-                if ring is not None:
-                    k, v = k[:, ring], v[:, ring]
-                else:  # the prompt positions of this rank's slots
-                    k, v = k[:, t0:t0 + T], v[:, t0:t0 + T]
+                k, v = k[:, ring], v[:, ring]  # the prompt positions of the rank's slots
                 bc["k"][l, :, :k.shape[1]] = k
                 bc["v"][l, :, :v.shape[1]] = v
                 if enc_out is not None:
                     enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
                     h = h + attn_mod.cross_attention(
-                        cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv)
+                        cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv,
+                        ctx)
                     bc["cross_k"][l], bc["cross_v"][l] = enc_kv
             if _has_ffn(cfg, kind):
                 h = _ffn_apply(cfg, bp, h, ctx)
@@ -821,7 +818,8 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
     return _logits(cfg, params, h[:, -1:, :]), cache
 
 
-def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[MeshCtx] = None):
+def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[MeshCtx] = None,
+              slots: Optional[Dict[str, int]] = None):
     """One decode step. token: [B, 1] int; ``pos`` a host int (the new
     token's position); the cache is updated in place and returned. A LOCAL
     block whose cache has exactly ``window_size`` slots decodes against it
@@ -833,14 +831,16 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[Me
     and conv tails into the cache. Returns (float32 logits [B, 1, V],
     cache).
 
-    With ``ctx`` (:func:`check_sharded`'s models), ``params``, ``token``
-    and ``cache`` are the rank's blocks (the cache laid out by the rules'
-    ``kv_seq``) and the logits are the rank's block of the vocab; every
-    attention goes through ``ops.decode_attention_lse``
-    (:func:`~repro_torch.models.attention.decode_self_attention`)."""
+    With ``ctx``, ``params``, ``token`` and ``cache`` are the rank's blocks
+    (the cache laid out by the rules, :func:`prefill_fn`) and the logits
+    are the rank's block of the vocab; every self attention goes through
+    ``ops.decode_attention_lse``. ``slots`` gives each attention block's
+    cache slots over the mesh, by block name (``launch.steps`` reads them
+    from the DTensor cache)."""
     specs = None
     if ctx is not None:
-        check_sharded(cfg, ctx)
+        if slots is None:
+            raise ValueError("decode_fn over a mesh takes each attention cache's slots")
         specs = mesh_specs(cfg, ctx)
         params = _gathered_top(cfg, params, ctx, specs)
     h = _lookup(cfg, params["embed"], token, ctx)
@@ -853,7 +853,7 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[Me
             if kind == MAMBA:
                 y, (state, tails) = ssm_mod.ssm_decode(
                     cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps), bc["state"][l],
-                    {name: bc[f"conv_{name}"][l] for name in ("x", "B", "C")})
+                    {name: bc[f"conv_{name}"][l] for name in ("x", "B", "C")}, ctx)
                 h = h + y
                 bc["state"][l] = state
                 for name in ("x", "B", "C"):
@@ -861,20 +861,22 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[Me
             else:
                 x_norm = rmsnorm(h, bp["ln_attn"], cfg.norm_eps)
                 W = cfg.window_size if kind == LOCAL else 0
-                if W and bc["k"].shape[2] == W:
+                n = None if ctx is None else slots[f"b{i}"]
+                if W and (n or bc["k"].shape[2]) == W:
                     y, _, _ = attn_mod.decode_ring_attention(
-                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W)
+                        cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, W, ctx=ctx,
+                        n_slots=n)
                 else:
                     y, _, _ = attn_mod.decode_self_attention(
                         cfg, bp["attn"], x_norm, bc["k"][l], bc["v"][l], pos, window=W,
-                        ctx=ctx)
+                        ctx=ctx, n_slots=n)
                 if cfg.use_post_norm:
                     y = rmsnorm(y, bp["post_ln_attn"], cfg.norm_eps)
                 h = h + y
                 if cfg.is_encoder_decoder:
                     h = h + attn_mod.cross_attention(
                         cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps),
-                        (bc["cross_k"][l], bc["cross_v"][l]))
+                        (bc["cross_k"][l], bc["cross_v"][l]), ctx)
             if _has_ffn(cfg, kind):
                 h = _ffn_apply(cfg, bp, h, ctx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

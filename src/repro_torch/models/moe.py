@@ -15,7 +15,12 @@ the batch axes, every rank of the whole mesh computes the rows of its
 resident experts, the outputs are summed over the mesh and each rank keeps
 its batch shard. The capacity is per shard, ``_capacity(T * k, e_shards,
 cf)`` over the rows a rank routes, so the rows the reference drops are
-dropped here too.
+dropped here too. Where the domain has more ranks than there are expert
+groups (``f_shards > 1``), rank m holds FFN chunk ``m % f_shards`` of
+expert group ``m // f_shards`` (:func:`moe_layout`); SiLU acts on each FFN
+column alone, so a chunk's output is a partial sum, and the all-reduce
+that adds the groups adds the chunks too. :func:`to_slots` and
+:func:`from_slots` map whole experts to a domain's slots and back.
 
 :func:`moe_apply` keeps the reference's semantics step by step, and is
 split into its four steps so that they can be timed apart:
@@ -78,6 +83,38 @@ def moe_specs(cfg: ModelConfig, n_model: int = 1) -> dict:
     }
 
 
+def to_slots(w, cfg: ModelConfig, n_shards: int, ffn_dim: int):
+    """Expert weights ``w`` with the experts whole (``E`` on dim -3, the
+    one-device tree's) as the ``slots`` of an expert-parallel domain of
+    ``n_shards`` ranks (:func:`moe_layout`): slot ``(g f_shards + c)
+    n_local + j`` holds FFN chunk c of expert ``g n_local + j``. ``ffn_dim``
+    is the FFN dim of ``w``'s last two (-1 for ``wg``/``wu`` [.., D, F], -2
+    for ``wd_`` [.., F, D]). A view's copy: the same values, moved."""
+    e_sh, f_sh, n_local, slots = moe_layout(cfg, n_shards)
+    lead, (a, b) = w.shape[:-3], w.shape[-2:]
+    cut = (a, f_sh, b // f_sh) if ffn_dim == -1 else (f_sh, a // f_sh, b)
+    x = w.reshape(*lead, e_sh, n_local, *cut)
+    n = len(lead)
+    chunk = n + (3 if ffn_dim == -1 else 2)  # the chunk index among x's dims
+    rest = [d for d in range(n + 2, n + 5) if d != chunk]
+    x = x.permute(*range(n), n, chunk, n + 1, *rest)
+    return x.reshape(*lead, slots, *x.shape[-2:])
+
+
+def from_slots(w, cfg: ModelConfig, n_shards: int, ffn_dim: int):
+    """The inverse of :func:`to_slots`: a domain's slots as whole experts."""
+    e_sh, f_sh, n_local, _ = moe_layout(cfg, n_shards)
+    lead, (a, b) = w.shape[:-3], w.shape[-2:]
+    n = len(lead)
+    x = w.reshape(*lead, e_sh, f_sh, n_local, a, b)
+    if ffn_dim == -1:  # [.., e, f, j, D, Fc] -> [.., e, j, D, f, Fc]
+        x = x.permute(*range(n), n, n + 2, n + 3, n + 1, n + 4)
+    else:  # [.., e, f, j, Fc, D] -> [.., e, j, f, Fc, D]
+        x = x.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    E = cfg.moe_num_experts
+    return x.reshape(*lead, E, *((a, b * f_sh) if ffn_dim == -1 else (a * f_sh, b)))
+
+
 def _capacity(n_rows_local: int, e_shards: int, cf: float) -> int:
     c = int(math.ceil(n_rows_local * cf / e_shards))
     return max(8, min(n_rows_local, (c + 7) // 8 * 8))
@@ -121,7 +158,7 @@ def dispatch(cfg: ModelConfig, topi, e_start: int = 0, n_local: int = 0,
     sel = order[:C]
     if topi.device.type == "meta":
         n = sel.shape[0]
-        return sel, [n // E + (e < n % E) for e in range(E)]
+        return sel, [n // n_local + (e < n % n_local) for e in range(n_local)]
     routed = torch.bincount(key, minlength=n_local + 1)[:n_local].tolist()
     sizes, room = [], C
     for r in routed:
@@ -183,8 +220,6 @@ def moe_apply(cfg: ModelConfig, p: dict, x, ctx=None):
     token = ctx is not None and ctx.rules.get("moe_mode") == "token"
     ep = None if ctx is None else ctx.group(tuple(ctx.sizes) if token else ("model",))
     e_shards, f_shards, n_local, _ = moe_layout(cfg, ep.size if ep else 1)
-    if f_shards != 1:
-        raise NotImplementedError(f"{cfg.name}: an expert split over {f_shards} ranks")
     if p["wg"].shape[0] != n_local:
         raise ValueError(f"{cfg.name}: expert weights of {p['wg'].shape[0]} slots; this "
                          f"rank holds {n_local} experts")
@@ -193,7 +228,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x, ctx=None):
     B, S, D = x_all.shape
     x_flat = x_all.reshape(B * S, D)
     topw, topi = route(cfg, p["router"], x_flat)
-    e_start = (ep.index if ep else 0) * n_local
+    e_start = ((ep.index if ep else 0) // f_shards) * n_local
     sel, group_sizes = dispatch(cfg, topi, e_start, n_local, e_shards)
     out_rows = expert_ffn(cfg, p, x_flat[sel // cfg.moe_top_k], group_sizes)
     out = coll.all_reduce(combine(out_rows, sel, topw, topi), ep).reshape(B, S, D)

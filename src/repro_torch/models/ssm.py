@@ -12,6 +12,17 @@ is that recurrence for one token.
 Shapes: d_inner = expand * d_model, H = d_inner // headdim heads, G groups
 sharing (B, C) projections of state size N. The state, B, C and dt are
 float32.
+
+Over a mesh (a ``MeshCtx``, ``ctx``) the weights are a rank's blocks: the
+rules split ``w_z``, ``w_x``, ``conv_x``, ``gate_norm`` and ``w_out``'s
+input dim on ``ssm_inner``, and ``w_dt``, ``dt_bias``, ``A_log`` and
+``D_skip`` on ``ssm_heads``, both over ``model``; ``w_B``, ``w_C`` and their
+convolutions are replicated. Each rank runs the SSD on its own heads (each
+reading the (B, C) group of its global index, :func:`ssm_layout`), the gate
+norm takes its mean square over the whole ``d_inner`` by an all-reduce of
+the ranks' sums of squares, and ``w_out``'s split contraction is
+all-reduced. The cache's state is split on its heads and ``conv_x`` on its
+channels, as the weights are.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -52,6 +64,32 @@ def ssm_specs(cfg: ModelConfig) -> dict:
         "gate_norm": ParamSpec((d_in,), ("ssm_inner",), init="ones", dtype=wd),
         "w_out": ParamSpec((d_in, D), ("ssm_inner", "embed"), dtype=wd),
     }
+
+
+def ssm_layout(cfg: ModelConfig, ctx):
+    """(heads group, B/C group slice) of a rank over a mesh: the group
+    splitting the SSM's heads and inner channels (None: not split), and the
+    slice of the G (B, C) groups its heads read, head h reading group
+    ``h // (H / G)`` of its global index."""
+    if ctx is None:
+        return None, slice(None)
+    return ctx.memo_cfg("ssm", cfg, lambda: _ssm_layout(cfg, ctx))
+
+
+def _ssm_layout(cfg: ModelConfig, ctx):
+    d_in, H, G, _ = ssm_dims(cfg)
+    hg = ctx.group(ctx.axes_for(H, "ssm_heads"))
+    ig = ctx.group(ctx.axes_for(d_in, "ssm_inner"))
+    if (hg and hg.axes) != (ig and ig.axes):
+        raise NotImplementedError(f"{cfg.name}: SSM heads split over {hg and hg.axes}, "
+                                  f"inner channels over {ig and ig.axes}")
+    if hg is None:
+        return None, slice(None)
+    n, rep = H // hg.size, H // G
+    if n % rep and rep % n:
+        raise NotImplementedError(f"{cfg.name}: {n} SSM heads a rank against groups of {rep}")
+    h0 = hg.index * n
+    return hg, slice(h0 // rep, (h0 + n - 1) // rep + 1)
 
 
 def _repeat(x, rep: int, dim: int):
@@ -101,9 +139,11 @@ def _conv_all(cfg, p, xin, Bm, Cm, tails):
     return (*out, new)
 
 
-def _gate_out(cfg, p, y, z):
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(cfg.activation_dtype)
+def _gate_out(cfg, p, y, z, group=None):
+    """The gated norm and ``w_out``; with ``group`` (the heads' group) the
+    norm's mean square and the product's contraction are summed over it."""
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, group)
+    return coll.all_reduce(y @ p["w_out"].to(cfg.activation_dtype), group)
 
 
 def ssd_chunked(X, dt, A, Bm, Cm, D_skip, Q: int, init_state=None):
@@ -125,10 +165,14 @@ def ssd_chunked(X, dt, A, Bm, Cm, D_skip, Q: int, init_state=None):
     Xf = X.float()
 
     # --- intra-chunk (quadratic within chunk) ------------------------------
-    # L[q,k] = exp(cs[q]-cs[k]) for q>=k else 0
+    # L[q,k] = exp(cs[q]-cs[k]) for q>=k else 0. The exponent is masked
+    # before the exp (-inf: exp gives 0), where the reference masks the
+    # exp's output: the same values, but above the diagonal cs[q] - cs[k]
+    # is a sum of |dt A| that overflows float32's exp at full width, and
+    # its gradient there, 0 * inf, would be NaN
     Lexp = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # [B,c,Q,Q,H] (q,k)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=X.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(Lexp), 0.0)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], Lexp, -torch.inf))
     CB = torch.einsum("bcqgn,bckgn->bcqkg", Cm, Bm)  # [B,c,Q,Q,G]
     CB = _repeat(CB, rep, -1)  # [B,c,Q,Q,H]
     M = CB * L * dt[:, :, None, :, :]  # weight for input k at query q
@@ -157,12 +201,25 @@ def ssd_chunked(X, dt, A, Bm, Cm, D_skip, Q: int, init_state=None):
     return Y.reshape(B_, S, H, P), s
 
 
+def _local_dims(cfg, p, ctx):
+    """(heads group, B/C group slice, d_inner, H, G, N) of the rank's
+    blocks ``p`` (the whole model's with no mesh)."""
+    _, _, G, N = ssm_dims(cfg)
+    hg, gs = ssm_layout(cfg, ctx)
+    H = p["w_dt"].shape[-1]
+    d_in = p["w_x"].shape[-1]
+    if d_in != H * cfg.ssm_headdim:
+        raise ValueError(f"{cfg.name}: {d_in} inner channels for {H} SSM heads")
+    return hg, gs, d_in, H, G, N
+
+
 def ssm_forward(cfg: ModelConfig, p: dict, x, *, init_state=None, conv_tails=None,
-                return_state: bool = False):
+                return_state: bool = False, ctx=None):
     """Full-sequence SSD. x: [B,S,D]. Returns y [B,S,D] (+ (ssm_state,
-    conv_tail {"x", "B", "C"}))."""
+    conv_tail {"x", "B", "C"})). Over a mesh ``p`` and the state are the
+    rank's heads, ``x`` and ``y`` whole."""
     B_, S, D = x.shape
-    d_in, H, G, N = ssm_dims(cfg)
+    hg, gs, d_in, H, G, N = _local_dims(cfg, p, ctx)
     P = cfg.ssm_headdim
     act = cfg.activation_dtype
 
@@ -180,20 +237,21 @@ def ssm_forward(cfg: ModelConfig, p: dict, x, *, init_state=None, conv_tails=Non
 
     A = -torch.exp(p["A_log"].float())  # [H]
     Y, final_state = ssd_chunked(
-        xin.reshape(B_, S, H, P), dt, A, Bm.reshape(B_, S, G, N).float(),
-        Cm.reshape(B_, S, G, N).float(), p["D_skip"], Q, init_state)
+        xin.reshape(B_, S, H, P), dt, A, Bm.reshape(B_, S, G, N)[:, :, gs].float(),
+        Cm.reshape(B_, S, G, N)[:, :, gs].float(), p["D_skip"], Q, init_state)
     y = Y.reshape(B_, S, d_in)[:, :S_orig].to(act)
-    out = _gate_out(cfg, p, y, z)
+    out = _gate_out(cfg, p, y, z, hg)
     if return_state:
         return out, (final_state, tails)
     return out
 
 
-def ssm_decode(cfg: ModelConfig, p: dict, x, state, conv_tails):
+def ssm_decode(cfg: ModelConfig, p: dict, x, state, conv_tails, ctx=None):
     """One-token recurrence. x: [B,1,D]; state: [B,H,N,P] fp32. Returns
-    (y [B,1,D], (new state, new conv tails))."""
+    (y [B,1,D], (new state, new conv tails)). Over a mesh ``p``, the state
+    and ``conv_x``'s tail are the rank's heads and channels."""
     B_, _, D = x.shape
-    d_in, H, G, N = ssm_dims(cfg)
+    hg, gs, d_in, H, G, N = _local_dims(cfg, p, ctx)
     P = cfg.ssm_headdim
     act = cfg.activation_dtype
 
@@ -201,17 +259,17 @@ def ssm_decode(cfg: ModelConfig, p: dict, x, state, conv_tails):
     xin, Bm, Cm, tails = _conv_all(cfg, p, xin, Bm, Cm, conv_tails)
 
     X = xin.reshape(B_, H, P).float()
-    Bm = Bm.reshape(B_, G, N).float()
-    Cm = Cm.reshape(B_, G, N).float()
+    Bm = Bm.reshape(B_, G, N)[:, gs].float()
+    Cm = Cm.reshape(B_, G, N)[:, gs].float()
     dt = dt.reshape(B_, H)
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A[None, :])  # [B,H]
 
-    rep = H // G
+    rep = H // Bm.shape[1]
     Bh = _repeat(Bm, rep, 1)  # [B,H,N]
     Ch = _repeat(Cm, rep, 1)
     state = state * dA[:, :, None, None] + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, X)
     y = torch.einsum("bhn,bhnp->bhp", Ch, state)
     y = y + p["D_skip"].float()[None, :, None] * X
     y = y.reshape(B_, 1, d_in).to(act)
-    return _gate_out(cfg, p, y, z), (state, tails)
+    return _gate_out(cfg, p, y, z, hg), (state, tails)

@@ -7,9 +7,9 @@ of a (2, 4) ``("data", "model")`` mesh. ``TASKS`` is a pickle the test
 writes: the cells (arch, config overrides, the shared parameters and
 inputs as numpy arrays) and the directories of the checkpoint and launcher
 runs. The rank runs every cell's sharded step and writes what it holds,
-its local blocks and their specs, the collectives of each cell's step
-(``launch.dryrun.count_collectives``) and the MoE rows it dropped, to
-``OUT/rank<r>.pkl``.
+its local blocks and their specs, the collectives of the cells the test
+holds to XLA's (``launch.dryrun.count_collectives``), the MoE rows it
+dropped and the FFN columns of the experts it ran, to ``OUT/rank<r>.pkl``.
 """
 
 import os
@@ -43,7 +43,7 @@ from repro_torch.runtime.fault_tolerance import elastic_reshard  # noqa: E402
 
 
 def config(arch, over):
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch.split("@")[0])
     over = {k: getattr(torch, v) if k in ("dtype", "param_dtype") else v
             for k, v in over.items()}
     return cfg.replace(**over)
@@ -70,6 +70,14 @@ def flat(tree, prefix=""):
     return {prefix: tree}
 
 
+def host_tensor(a):
+    """A numpy input as a tensor: bf16 embeddings (``ml_dtypes``) through
+    float32, which holds them exactly."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.asarray(a))
+
+
 def blocks(tree):
     """{path: (local numpy block, spec)} of a DTensor tree."""
     out = {}
@@ -81,10 +89,15 @@ def blocks(tree):
 
 class Drops:
     """Counts the MoE rows ``moe.dispatch`` cuts at the capacity while it
-    is entered: the rows routed to the rank's experts less the rows kept."""
+    is entered: the rows routed to the rank's experts less the rows kept;
+    and the FFN columns of the expert weights ``moe.expert_ffn`` ran."""
 
     def __enter__(self):
-        self.n, self.dispatch = 0, moe.dispatch
+        self.n, self.dispatch, self.ffn, self.cols = 0, moe.dispatch, moe.expert_ffn, set()
+
+        def ffn(cfg, p, xs, group_sizes):
+            self.cols.add(p["wg"].shape[-1])
+            return self.ffn(cfg, p, xs, group_sizes)
 
         def counting(cfg, topi, e_start=0, n_local=0, e_shards=1):
             sel, sizes = self.dispatch(cfg, topi, e_start, n_local, e_shards)
@@ -93,11 +106,11 @@ class Drops:
             self.n += int(mine.sum()) - sum(sizes)
             return sel, sizes
 
-        moe.dispatch = counting
+        moe.dispatch, moe.expert_ffn = counting, ffn
         return self
 
     def __exit__(self, *exc):
-        moe.dispatch = self.dispatch
+        moe.dispatch, moe.expert_ffn = self.dispatch, self.ffn
 
 
 def counted(cfg, shape, mesh):
@@ -114,8 +127,8 @@ def train_cell(cell, mesh, B, S):
     state = {"params": place_tree(cast_tree(cell["params"], plain["params"]),
                                   specs["params"], mesh),
              "opt": place_tree(plain["opt"], specs["opt"], mesh)}
-    batch = {k: distribute(torch.from_numpy(v), pspec(rules.get("batch"),
-                                                      *([None] * (v.ndim - 1))), mesh)
+    batch = {k: distribute(host_tensor(v), pspec(rules.get("batch"), *([None] * (v.ndim - 1))),
+                           mesh)
              for k, v in cell["batch"].items()}
     ctx = model_mod.MeshCtx(mesh, rules)
     with Drops() as drops:
@@ -126,7 +139,8 @@ def train_cell(cell, mesh, B, S):
     return {"loss": float(metrics["loss"]), "grad_loss": float(loss),
             "grad_norm": float(metrics["grad_norm"]), "grads": grads,
             "params": blocks(new["params"]), "opt": blocks(new["opt"]),
-            "collectives": counted(cfg, ShapeConfig("t", S, B, "train"), mesh),
+            "collectives": (counted(cfg, ShapeConfig("t", S, B, "train"), mesh)
+                            if cell["collectives"] else None),
             "dropped": drops.n}, new
 
 
@@ -139,7 +153,8 @@ def serve_cell(cell, mesh, B, S):
     pre_rules = {**pre_rules, "kv_seq": dec_rules["kv_seq"]}
     out = {}
     params_p = place_tree(cell["params"], state_specs(cfg, mesh, pre_rules)["params"], mesh)
-    params_d = place_tree(cell["params"], state_specs(cfg, mesh, dec_rules)["params"], mesh)
+    params_d = place_tree(cell["decode_params"], state_specs(cfg, mesh, dec_rules)["params"],
+                          mesh)
     prefill = build_prefill_step(cfg, ShapeConfig("t", S + n, B, "prefill"), mesh, pre_rules)
     decode = build_decode_step(cfg, mesh, dec_rules)
 
@@ -147,18 +162,26 @@ def serve_cell(cell, mesh, B, S):
         x = torch.from_numpy(np.asarray(x))
         return distribute(x, pspec(rules.get("batch"), *([None] * (x.dim() - 1))), mesh)
 
-    with torch.no_grad(), Drops() as drops:
-        logits, cache = prefill(params_p, {"tokens": place(cell["prompt"], pre_rules)})
+    prompt = cell["prompt"]
+    pos = prompt["tokens"].shape[1] + (prompt["image_embeds"].shape[1]
+                                       if "image_embeds" in prompt else 0)
+    with torch.no_grad():
+        with Drops() as drops:
+            logits, cache = prefill(params_p, {k: place(v, pre_rules) for k, v in prompt.items()})
         out["prefill_dropped"] = drops.n
+        out["prefill_ffn_cols"] = sorted(drops.cols)
         out["prefill_logits"] = blocks({"x": logits})["x"]
         out["cache"] = blocks(cache)
         out["decode_logits"] = []
-        for i in range(n):
-            logits, cache = decode(params_d, place(cell["tokens"][i], dec_rules), S + i, cache)
-            out["decode_logits"].append(blocks({"x": logits})["x"])
-    out["dropped"] = drops.n
-    out["prefill_collectives"] = counted(cfg, ShapeConfig("t", S, B, "prefill"), mesh)
-    out["decode_collectives"] = counted(cfg, ShapeConfig("t", S + n, B, "decode"), mesh)
+        with Drops() as drops:
+            for i in range(n):
+                logits, cache = decode(params_d, place(cell["tokens"][i], dec_rules), pos + i,
+                                       cache)
+                out["decode_logits"].append(blocks({"x": logits})["x"])
+        out["decode_ffn_cols"] = sorted(drops.cols)
+    for kind in cell["collectives"]:
+        out[f"{kind}_collectives"] = counted(
+            cfg, ShapeConfig("t", S if kind == "prefill" else S + n, B, kind), mesh)
     return out
 
 
@@ -198,13 +221,16 @@ def engine_relayout(mesh, arch, over):
     eng._laid_out("prefill")
     after = blocks(eng.params)
     return {"tokens": [first, second], "phase": phase,
-            "moved": sorted(p for p in before if before[p][1] != decode[p][1]),
+            "moved": sorted(p for p in before if before[p][1] != decode[p][1]
+                            or before[p][0].shape != decode[p][0].shape),
             "decode_specs": {p: decode[p][1] for p in decode},
+            "prefill_shapes": {p: before[p][0].shape for p in before},
+            "decode_shapes": {p: decode[p][0].shape for p in decode},
             "round_trip": all(np.array_equal(before[p][0], after[p][0])
                               and before[p][1] == after[p][1] for p in before)}
 
 
-def launchers(dirs):
+def launchers(dirs, archs):
     out = {}
     _, sup = train_mod.run(["--arch", "llama3.2-1b", "--smoke", "--steps", "3", "--batch",
                             "8", "--seq", "32", "--device", "cpu", "--data-par", "2",
@@ -215,14 +241,14 @@ def launchers(dirs):
                     "--model-par", "4", "--requests", "8", "--prompt", "16",
                     "--out-tokens", "3"])
     out["serve"] = True
-    for arch in ("mamba2-370m", "gemma2-9b", "whisper-base"):
-        try:
-            train_mod.run(["--arch", arch, "--smoke", "--steps", "1", "--batch", "8",
-                           "--seq", "32", "--device", "cpu", "--data-par", "2",
-                           "--model-par", "4", "--ckpt-dir", dirs["train"]])
-            out[arch] = "ran"
-        except NotImplementedError as e:
-            out[arch] = str(e)
+    for arch in archs:  # one step and two new tokens each
+        _, sup = train_mod.run(["--arch", arch, "--smoke", "--steps", "1", "--batch", "8",
+                                "--seq", "32", "--device", "cpu", "--data-par", "2",
+                                "--model-par", "4", "--ckpt-dir", f"{dirs['train']}_{arch}"])
+        out[arch] = [h["loss"] for h in sup.history]
+        serve_mod.main(["--arch", arch, "--smoke", "--device", "cpu", "--data-par", "2",
+                        "--model-par", "4", "--requests", "8", "--prompt", "16",
+                        "--out-tokens", "2"])
     return out
 
 
@@ -243,8 +269,9 @@ def main(tasks_path, out_dir):
                                                  "opt": blocks(new["opt"])}
         for cell in tasks["serve"]:
             result["serve"][cell["arch"]] = serve_cell(cell, mesh, B, S)
-        result["launchers"] = launchers(tasks["launch_dirs"])
-        result["engine"] = engine_relayout(mesh, tasks["engine_arch"], tasks["engine_over"])
+        result["launchers"] = launchers(tasks["launch_dirs"], tasks["launch_archs"])
+        result["engine"] = {arch: engine_relayout(mesh, arch, over)
+                            for arch, over in tasks["engines"].items()}
     except Exception:
         result["error"] = traceback.format_exc()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

@@ -12,9 +12,15 @@
   flops; a smoke prefill's traced temp stays below the plain scores of one
   layer; MoE cells trace; the two-part train trace equals one pass of the
   real train step; 2- and 3-group extrapolation equals the full-depth
-  trace; ``fits_hbm`` is unresolved (None) where an upper-bound trace is
-  over the card's memory; the traced over analytic FLOPs of the dense smoke train and
+  trace; the traced over analytic FLOPs of the dense smoke train and
   prefill cells lie in [0.8, 1.25].
+* Rank 0's trace (the sharded step on its blocks, in a fake world of the
+  layout's ranks): the arguments it is given are the layout's shard sums
+  (``arg_bytes``, which ``tests/test_torch_layout_compile.py`` holds to
+  JAX's) in every (2, 4) smoke cell; on a 1 x 1 layout it is the
+  one-device trace; a full-width cell's bytes a device lie between its
+  arguments and the whole-weight trace's bound, and every cell gets a
+  verdict, the production cells that bound left unresolved among them.
 * The CLI writes one JSONL record for one cell with the reference's keys,
   and ``--arch all``'s loop one a cell.
 """
@@ -204,10 +210,14 @@ def test_prefill_trace_holds_no_scores():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
 def test_moe_cells_trace(arch):
+    """The FLOPs come from the one-device expert layout, the memory from
+    rank 0's sharded step on the mesh's expert slots."""
     for kind in ("train", "prefill", "decode"):
         rec = smoke_cell(arch, kind, make_local_mesh(2, 4))
         assert rec["status"] == "ok" and rec["traced_flops"] > 0
-        assert "slots = E" in rec["temp_basis"]
+        assert rec["rank_traced_flops"] > 0
+        assert "slots = E" in rec["flops_basis"]
+        assert "fake world of 8 ranks" in rec["temp_basis"]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x7b", "whisper-base"])
@@ -244,19 +254,73 @@ def test_extrapolated_trace_equals_full_depth(arch):
         assert part.peak <= whole.peak, kind
 
 
+def whole_weight_bound(rec, cfg, shape):
+    """A record's bytes a device with the temp of the one-device trace on
+    rank 0's batch, which holds the weights whole: the upper bound the dry
+    run gave before it traced rank 0's shard."""
+    whole = dryrun.trace_step(cfg, shape, rec["trace_batch"])
+    return (rec["arg_bytes"] + max(0, whole.peak - whole.out_new) + rec["out_bytes"]
+            - rec["alias_bytes"])
+
+
 def test_fits_hbm_unresolved_where_the_trace_is_an_upper_bound():
-    """yi-34b trains over 80 GB a device on both layouts. On one device
-    the trace is exact and the verdict is False; on the (2, 4) layout the
-    rules split the weights the trace holds whole, and it is None."""
+    """yi-34b trains over 80 GB a device on one device: the trace is exact
+    and the verdict is False. On the (2, 4) layout the rules split the
+    weights; the whole-weight trace's bound is over 80 GB and could not
+    tell, but rank 0's trace holds its own blocks, so no layout leaves the
+    cell unresolved: its bytes lie between its arguments and that bound,
+    and its verdict is True or False."""
     shape = ShapeConfig("t", 64, 8, "train")
     one = dryrun.run_cell("yi-34b", "", False, verbose=False, mesh=make_local_mesh(1, 1),
                           shape=shape)
     split = dryrun.run_cell("yi-34b", "", False, verbose=False, mesh=make_local_mesh(2, 4),
                             shape=shape)
     assert one["bytes_per_device"] > roofline.H100.hbm_bytes and one["fits_hbm"] is False
-    assert "upper bound" not in one["temp_basis"]
-    assert split["bytes_per_device"] > roofline.H100.hbm_bytes and split["fits_hbm"] is None
-    assert "upper bound" in split["temp_basis"]
+    assert "fake world" not in one["temp_basis"]
+    bound = whole_weight_bound(split, get_config("yi-34b"), shape)
+    assert bound > roofline.H100.hbm_bytes
+    assert split["arg_bytes"] < split["bytes_per_device"] < bound
+    assert split["fits_hbm"] is (split["bytes_per_device"] <= roofline.H100.hbm_bytes)
+    assert "fake world of 8 ranks" in split["temp_basis"]
+
+
+SMOKE_CELLS = [(arch, kind) for arch in sorted(ALL) for kind in ("train", "prefill", "decode")
+               if not (arch == "roberta-large" and kind == "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", SMOKE_CELLS, ids=[f"{a}-{k}" for a, k in SMOKE_CELLS])
+def test_rank_trace_takes_the_layouts_shards(arch, kind):
+    """In a fake world of 8 on the smoke (2, 4) layout, rank 0's trace is
+    given exactly the layout's shard sums (``arg_bytes``) and gives a
+    verdict."""
+    rec = smoke_cell(arch, kind, make_local_mesh(2, 4))
+    assert rec["rank_arg_bytes"] == rec["arg_bytes"]
+    assert rec["fits_hbm"] in (True, False) and rec["temp_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "jamba-1.5-large-398b", "whisper-base"])
+def test_rank_trace_on_one_by_one_is_the_one_device_trace(arch):
+    cfg = smoke_config(arch)
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeConfig("x", 64, 8, kind)
+        rank = dryrun.trace_rank(cfg, shape, make_local_mesh(1, 1))
+        whole = dryrun.trace_step(cfg, shape, 8)
+        assert (rank.flops, rank.peak, rank.out_new) == (whole.flops, whole.peak,
+                                                         whole.out_new), kind
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b"])
+def test_cells_the_bound_left_unresolved_get_a_verdict(arch):
+    """Two of the production cells that the whole-weight trace left
+    unresolved on 16 x 16 (over 80 GB with its temp an upper bound): rank
+    0's trace in a fake world of 256 gives each a verdict, its bytes
+    between the arguments and that bound."""
+    rec = dryrun.run_cell(arch, "train_4k", False, verbose=False)
+    bound = whole_weight_bound(rec, get_config(arch), SHAPES_BY_NAME["train_4k"])
+    assert bound > roofline.H100.hbm_bytes
+    assert rec["fits_hbm"] in (True, False)
+    assert rec["arg_bytes"] < rec["bytes_per_device"] < bound
+    assert "fake world of 256 ranks" in rec["temp_basis"]
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -308,3 +372,27 @@ def test_run_all_writes_a_record_per_cell(tmp_path, monkeypatch):
     assert [r["shape"] for r in recs] == list(SHAPES_BY_NAME)
     assert [r["status"] for r in recs] == ["ok", "ok", "ok", "skipped"]
     assert all(REFERENCE_KEYS <= r.keys() for r in recs[:3])
+
+
+def test_rank_trace_beside_a_running_process_group():
+    """Where a process group is running (a sharded run's, as after
+    ``chip_smoke.py`` phase (m)), rank 0's fake world cannot start in the
+    same process: the trace runs in a spawned child and gives the same
+    counts; the running group is left as it was."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+
+    cfg, shape = smoke_config("gemma2-9b"), ShapeConfig("x", 64, 8, "decode")
+    here = dryrun.trace_rank(cfg, shape, make_local_mesh(2, 4))
+    assert not dist.is_initialized()
+    make_device_mesh(1, 1, "cpu")
+    try:
+        with pytest.raises(RuntimeError, match="child process"):
+            with dryrun.rank_world(make_local_mesh(2, 4)):
+                pass
+        child = dryrun.trace_rank(cfg, shape, make_local_mesh(2, 4))
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+    assert (child.flops, child.peak, child.out_new, child.args) == (
+        here.flops, here.peak, here.out_new, here.args)

@@ -170,3 +170,28 @@ def test_ssm_inits_in_range(device_seed):
     assert b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
     with pytest.raises(ValueError, match="unknown init"):
         init_param(ParamSpec((4,), ("x",), init="xavier"), gen)
+
+
+def test_ssd_gradient_is_finite_where_the_decay_overflows():
+    """A strong decay (dt ~ 20, A = -10: cs falls 200 a step) puts
+    cs[q] - cs[k] above float32's exp range above the chunk's diagonal, as
+    full-width mamba2-370m does at initialisation. The forward equals JAX's
+    (the masked entries are 0 on both sides); the port masks the exponent
+    before the exp, so its gradient stays finite, where the reference's
+    ``where`` of the exp's output gives 0 * inf = NaN (ROADMAP "Deliberate
+    divergences")."""
+    jcfg, cfg = _configs()
+    p, pt = _params(jcfg)
+    p["dt_bias"] = np.full_like(p["dt_bias"], 20.0)
+    p["A_log"] = np.full_like(p["A_log"], np.log(10.0))
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    x = _x((2, 32, cfg.d_model), 3)
+    leaves = {k: v.clone().requires_grad_() for k, v in pt.items()}
+    got = ssm.ssm_forward(cfg, leaves, torch.from_numpy(x))
+    got.square().sum().backward()
+    assert all(torch.isfinite(v.grad).all() for v in leaves.values())
+    want = jssm.ssm_forward(jcfg, p, jnp.asarray(x))
+    assert _rel(want, got.detach()) < PKG_TOL
+    jgrad = jax.grad(lambda q: jnp.sum(jnp.square(jssm.ssm_forward(jcfg, q, jnp.asarray(x)))))(
+        jax.tree.map(jnp.asarray, p))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jax.tree.leaves(jgrad))
