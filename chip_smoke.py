@@ -2844,28 +2844,24 @@ def bf16_gate(dev, arch: str, S: int) -> dict:
             "worst_attention_leaf": attn[0], "worst_entry": e, "zeroed_backward_worst_leaf": rz}
 
 
-def step_split(cfg, opt, state, batch) -> dict:
-    """One train step's seconds in its three parts, each ended by a
-    synchronize: the loss (forward), its gradient (backward, which
-    recomputes each layer's forward under full remat) and the optimizer
-    update."""
+def traced_split(step, state, batch) -> dict:
+    """One ``build_train_step`` call's seconds in its three parts, read
+    from the program's own ``train.forward``, ``train.backward`` (which
+    recomputes each layer's forward under full remat) and
+    ``train.optimizer`` spans: device time between the CUDA events at
+    each span's entry and exit, the call run under ``torch.profiler``."""
     import torch
-    from repro_torch.models import model
-    from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(state["params"])]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.enable_grad():
-        loss = model.loss_fn(cfg, tree_unflatten(state["params"], leaves), batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = torch.autograd.grad(loss, leaves)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    opt.update(tree_unflatten(state["params"], list(grads)), state["opt"], state["params"])
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    return {"forward_s": t1 - t0, "backward_s": t2 - t1, "optimizer_s": t3 - t2}
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import device as obs
+    obs.new_session()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        _, m = step(state, batch)
+        m["loss"].item()
+    spans = obs.resolve(obs.session())
+    obs.new_session()
+    s = {r.name: (r.device_end_ns - r.device_start_ns) / 1e9 for r in spans}
+    return {"forward_s": s["train.forward"], "backward_s": s["train.backward"],
+            "optimizer_s": s["train.optimizer"]}
 
 
 def step_peak_start() -> tuple:
@@ -2892,7 +2888,8 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
     weights from seed 0. roberta-large: a clean run, then the same run with
     a fault injected before its fourth step run, restored from the step-2
     checkpoint and replayed to the clean run's state within REPLAY_ATOL;
-    then one step split into forward, backward and optimizer. llama3.2-1b:
+    then one step split into forward, backward and optimizer by its spans
+    (:func:`traced_split`). llama3.2-1b:
     the same steps through ``build_train_step`` alone (its train state is
     15 GB a checkpoint)."""
     import shutil
@@ -2970,8 +2967,9 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         del faulty
         opt = make_optimizer(cfg.optimizer)
         batch = device_put_batch(SyntheticTokenPipeline(cfg, DataConfig(B, S)).batch_at(0), dev)
+        step = build_train_step(cfg, None, None, opt)
         _, held, freed = step_peak_start()
-        out["split"] = step_split(cfg, opt, state, batch)
+        out["split"] = traced_split(step, state, batch)
         step_peak = torch.cuda.max_memory_allocated()
         sp = out["split"]
         extra = (f"; crash before step run {TRAIN_FAIL_AT}: restored the step-2 checkpoint, "

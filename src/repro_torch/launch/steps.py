@@ -18,6 +18,7 @@ elastic_reshard`` places a host state by."""
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Optional
 
@@ -30,6 +31,7 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.param import (ParamSpec, Rules, abstract_params, axis_sizes,
                                       entry_axes, init_params, resolve_spec, sharded,
                                       tree_map_specs)
+from repro_torch.obs import device as obs
 from repro_torch.parallel import collectives as coll
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizers import tree_leaves, tree_unflatten
@@ -86,15 +88,20 @@ def loss_and_grads(cfg: ModelConfig, params, batch, ctx=None):
     of the ranks' objectives is the reference's loss and every collective's
     backward is its adjoint; a leaf replicated over some axes has its
     gradient summed over them (``MeshCtx.synced``). The loss returned is the
-    reference's, the mean over the batch shards."""
+    reference's, the mean over the batch shards.
+
+    The loss is the ``train.forward`` span, its gradient ``train.backward``
+    (:mod:`repro_torch.obs.device`)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        tree = tree_unflatten(params, leaves)
-        if ctx is not None:
-            tree = ctx.synced(tree, model_mod.mesh_specs(cfg, ctx))
-        loss = model_mod.loss_fn(cfg, tree, batch, ctx)
-        objective = loss if ctx is None or ctx.world == 1 else loss / ctx.world
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
+        with obs.span("train.forward"):
+            tree = tree_unflatten(params, leaves)
+            if ctx is not None:
+                tree = ctx.synced(tree, model_mod.mesh_specs(cfg, ctx))
+            loss = model_mod.loss_fn(cfg, tree, batch, ctx)
+            objective = loss if ctx is None or ctx.world == 1 else loss / ctx.world
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(objective, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
     loss = loss.detach()
     if ctx is not None and ctx.world > 1:
@@ -138,12 +145,20 @@ def build_train_step(cfg: ModelConfig, mesh, rules: Optional[Rules], opt: Optimi
     device (reading them waits for the step). With ``mesh`` (a
     ``DeviceMesh``) and ``rules`` the state and the batch are DTensors
     laid out by the rules (``steps.init_state``, ``data.pipeline.
-    device_put_batch``), and so is the new state."""
+    device_put_batch``), and so is the new state.
+
+    Each call is a ``train.step`` span labelled with the call's count
+    (``step``, from 1), which counts the allocator's device calls, around
+    ``train.forward`` and ``train.backward`` (:func:`loss_and_grads`) and
+    ``train.optimizer`` (:mod:`repro_torch.obs.device`)."""
+    calls = itertools.count(1)
     if mesh is None:
         def train_step(state, batch):
-            params = state["params"]
-            loss, grads = loss_and_grads(cfg, params, batch)
-            new_params, new_opt, gnorm = opt.update(grads, state["opt"], params)
+            with obs.span("train.step", step=next(calls), alloc=True):
+                params = state["params"]
+                loss, grads = loss_and_grads(cfg, params, batch)
+                with obs.span("train.optimizer"):
+                    new_params, new_opt, gnorm = opt.update(grads, state["opt"], params)
             return {"params": new_params, "opt": new_opt}, {"loss": loss, "grad_norm": gnorm}
 
         return train_step
@@ -152,12 +167,14 @@ def build_train_step(cfg: ModelConfig, mesh, rules: Optional[Rules], opt: Optimi
     specs = state_specs(cfg, mesh, rules)["params"]
 
     def sharded_train_step(state, batch):
-        params = to_local(state["params"])
-        loss, grads = loss_and_grads(cfg, params, to_local(batch), ctx)
-        new_params, new_opt, gnorm = opt.update(grads, to_local(state["opt"]), params,
-                                                ctx=ctx, specs=specs)
-        return ({"params": like(new_params, state["params"]),
-                 "opt": like(new_opt, state["opt"])}, {"loss": loss, "grad_norm": gnorm})
+        with obs.span("train.step", step=next(calls), alloc=True):
+            params = to_local(state["params"])
+            loss, grads = loss_and_grads(cfg, params, to_local(batch), ctx)
+            with obs.span("train.optimizer"):
+                new_params, new_opt, gnorm = opt.update(grads, to_local(state["opt"]), params,
+                                                        ctx=ctx, specs=specs)
+            return ({"params": like(new_params, state["params"]),
+                     "opt": like(new_opt, state["opt"])}, {"loss": loss, "grad_norm": gnorm})
 
     return sharded_train_step
 
@@ -206,22 +223,31 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
     :func:`decoder_slots` slots. With ``mesh`` and ``rules``: DTensors in
     and out, the cache laid out by the rules' ``kv_seq`` (the decode
     rules', for a cache that decode reads in place) and the last position's
-    logits as the reference lays them out (split by batch and vocab)."""
+    logits as the reference lays them out (split by batch and vocab).
+
+    Each call is a ``serve.prefill`` span labelled with the call's count
+    (``request``, from 1) and the batch's tokens, which counts the
+    allocator's device calls (:mod:`repro_torch.obs.device`)."""
     max_len = decoder_slots(cfg, shape.seq_len)
+    calls = itertools.count(1)
     if mesh is None:
         def prefill_step(params, batch):
-            return model_mod.prefill_fn(cfg, params, batch, max_len=max_len)
+            with obs.span("serve.prefill", request=next(calls),
+                          tokens=batch["tokens"].numel(), alloc=True):
+                return model_mod.prefill_fn(cfg, params, batch, max_len=max_len)
 
         return prefill_step
 
     ctx = model_mod.MeshCtx(mesh, rules)
 
     def sharded_prefill_step(params, batch):
-        logits, cache = model_mod.prefill_fn(cfg, to_local(params), to_local(batch), max_len,
-                                             ctx)
-        B = batch["tokens"].shape[0]  # the global batch
-        enc_S = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
-        return _logits_out(cfg, logits, ctx), _cache_out(cfg, cache, ctx, B, max_len, enc_S)
+        with obs.span("serve.prefill", request=next(calls), tokens=batch["tokens"].numel(),
+                      alloc=True):
+            logits, cache = model_mod.prefill_fn(cfg, to_local(params), to_local(batch),
+                                                 max_len, ctx)
+            B = batch["tokens"].shape[0]  # the global batch
+            enc_S = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+            return _logits_out(cfg, logits, ctx), _cache_out(cfg, cache, ctx, B, max_len, enc_S)
 
     return sharded_prefill_step
 

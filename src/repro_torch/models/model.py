@@ -99,6 +99,7 @@ from repro_torch.models.config import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec, softcap
 from repro_torch.models.param import (ParamSpec, Rules, axis_sizes, entry_axes, mesh_coords,
                                       resolve_spec, tree_map_specs)
+from repro_torch.obs import device as obs
 from repro_torch.parallel import collectives as coll
 
 
@@ -452,15 +453,17 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
     return h
 
 
-def _group_forward(cfg, gp, h, positions, enc_out, *, causal, ctx=None, specs=None):
-    """One pattern group (``gp`` its blocks ``b0 ..``) at full length; over
-    a mesh, ``gp`` is the rank's blocks, gathered here (``specs``: the
-    stacked group's ParamSpecs)."""
+def _group_forward(cfg, gp, h, positions, enc_out, index, *, causal, ctx=None, specs=None):
+    """Pattern group ``index`` (``gp`` its blocks ``b0 ..``) at full length;
+    over a mesh, ``gp`` is the rank's blocks, gathered here (``specs``: the
+    stacked group's ParamSpecs). Each block is a ``model.block`` span, so
+    a recompute in the backward pass shows as one too."""
     if ctx is not None:
         gp = ctx.gather(gp, specs, stacked=True)
     for i, kind in enumerate(cfg.pattern):
-        h = _block_forward(cfg, gp[f"b{i}"], kind, h, positions=positions, causal=causal,
-                           enc_out=enc_out, ctx=ctx)
+        with obs.span("model.block", layer=index * len(cfg.pattern) + i):
+            h = _block_forward(cfg, gp[f"b{i}"], kind, h, positions=positions, causal=causal,
+                               enc_out=enc_out, ctx=ctx)
     return h
 
 
@@ -585,7 +588,7 @@ def _decoder_stack(cfg, params, h, *, positions, causal, enc_out, aux_losses, ct
     group = _remat(cfg, partial(_group_forward, cfg, causal=causal, ctx=ctx,
                                 specs=None if ctx is None else specs["decoder"]))
     for l in range(cfg.num_groups):
-        h = group(_layer(params["decoder"], l), h, positions, enc_out)
+        h = group(_layer(params["decoder"], l), h, positions, enc_out, l)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -658,9 +661,10 @@ def loss_fn(cfg: ModelConfig, params, batch, ctx: Optional[MeshCtx] = None) -> t
     run = partial(_token_losses, cfg, params, group=vocab)
     if torch.is_grad_enabled() and n > chunk:
         run = partial(torch_checkpoint.checkpoint, run, use_reentrant=False)
-    losses = torch.cat([run(h[:, i:i + chunk], targets[:, i:i + chunk])
-                        for i in range(0, n, chunk)], dim=1)
-    ce = torch.mean(losses)
+    with obs.span("model.loss_head"):
+        losses = torch.cat([run(h[:, i:i + chunk], targets[:, i:i + chunk])
+                            for i in range(0, n, chunk)], dim=1)
+        ce = torch.mean(losses)
     if aux:
         ce = ce + cfg.moe_aux_loss_weight * sum(aux)
     return ce
@@ -787,33 +791,34 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
         if ctx is not None:
             gp = ctx.gather(gp, specs["decoder"], stacked=True)
         for i, (kind, (W, ring)) in enumerate(zip(cfg.pattern, blocks)):
-            bp, bc = gp[f"b{i}"], cache[f"b{i}"]
-            if kind == MAMBA:
-                y, (state, tails) = ssm_mod.ssm_forward(
-                    cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps),
-                    return_state=True, ctx=ctx)
-                h = h + y
-                bc["state"][l] = state
-                for name in ("x", "B", "C"):
-                    bc[f"conv_{name}"][l] = tails[name]
-            else:
-                a, (k, v) = attn_mod.self_attention(
-                    cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
-                    positions=positions, causal=True, window=W, return_kv=True, ctx=ctx)
-                if cfg.use_post_norm:
-                    a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
-                h = h + a
-                k, v = k[:, ring], v[:, ring]  # the prompt positions of the rank's slots
-                bc["k"][l, :, :k.shape[1]] = k
-                bc["v"][l, :, :v.shape[1]] = v
-                if enc_out is not None:
-                    enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
-                    h = h + attn_mod.cross_attention(
-                        cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv,
-                        ctx)
-                    bc["cross_k"][l], bc["cross_v"][l] = enc_kv
-            if _has_ffn(cfg, kind):
-                h = _ffn_apply(cfg, bp, h, ctx)
+            with obs.span("model.block", layer=l * len(cfg.pattern) + i):
+                bp, bc = gp[f"b{i}"], cache[f"b{i}"]
+                if kind == MAMBA:
+                    y, (state, tails) = ssm_mod.ssm_forward(
+                        cfg, bp["ssm"], rmsnorm(h, bp["ln"], cfg.norm_eps),
+                        return_state=True, ctx=ctx)
+                    h = h + y
+                    bc["state"][l] = state
+                    for name in ("x", "B", "C"):
+                        bc[f"conv_{name}"][l] = tails[name]
+                else:
+                    a, (k, v) = attn_mod.self_attention(
+                        cfg, bp["attn"], rmsnorm(h, bp["ln_attn"], cfg.norm_eps),
+                        positions=positions, causal=True, window=W, return_kv=True, ctx=ctx)
+                    if cfg.use_post_norm:
+                        a = rmsnorm(a, bp["post_ln_attn"], cfg.norm_eps)
+                    h = h + a
+                    k, v = k[:, ring], v[:, ring]  # the prompt positions of the rank's slots
+                    bc["k"][l, :, :k.shape[1]] = k
+                    bc["v"][l, :, :v.shape[1]] = v
+                    if enc_out is not None:
+                        enc_kv = attn_mod.project_cross_kv(cfg, bp["cross"], enc_out)
+                        h = h + attn_mod.cross_attention(
+                            cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv,
+                            ctx)
+                        bc["cross_k"][l], bc["cross_v"][l] = enc_kv
+                if _has_ffn(cfg, kind):
+                    h = _ffn_apply(cfg, bp, h, ctx)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h[:, -1:, :]), cache
 

@@ -10,6 +10,16 @@ traces, per-run manifests under an ``--artifacts`` dir; the port's manifest
 records torch, CUDA and the card), and ``log`` (the shared stderr
 stdlib-logging setup the launchers route prints through).
 
+A recorder's spans are also kept as a **timeline** (``metrics.SpanRecord``:
+name, labels, host start and end in ``time.time_ns()``, the clock of
+``torch.profiler``'s timestamps, the parent span and the request or step
+id). ``device`` (imported as ``repro_torch.obs.device``, the one module
+here that needs torch) opens the port's spans inside its prefill and
+train steps: they record into the installed recorder while it is enabled,
+and into a recorder the module keeps for the session while
+``torch.profiler`` is on; each gets its device start and end from CUDA
+events. Otherwise a site costs one check and records nothing.
+
 On top of the passive recorder sits the *online* half: ``stream``
 (O(1)-state windowed aggregation — P² quantile digests, EWMA slope over
 the 40 s OOB horizon, tumbling/sliding windows — fed by the fleet telemetry

@@ -8,6 +8,16 @@ wall-clock profiling of named stages, and a structured **event** log (one
 ``(t, subsystem, kind, labels)`` record per state transition — brake edges,
 planner probes).
 
+Every span a :class:`MetricsRecorder` records is also kept, in order of
+entry, on its **timeline** (:class:`SpanRecord`): name and labels, host
+start and end, the index of the span open around it (its parent) and the
+id of the request or step it belongs to (its own ``request`` or ``step``
+label, else its parent's). The timeline stays in memory; nothing is
+written while it records, and snapshots, merges and the Prometheus text
+hold the spans' aggregates alone. The torch side
+(:mod:`repro_torch.obs.device`) adds each span's device start and end and
+records the port's steps into it.
+
 Observability *observes, never perturbs*:
 
 * instrumentation call sites are write-only — they never read recorder
@@ -23,7 +33,9 @@ Observability *observes, never perturbs*:
 Timestamps: simulation-domain events carry *simulation* time in ``t`` so
 event traces are deterministic across runs and worker counts; wall-clock
 lives only in spans (which are aggregated, and excluded from determinism
-guarantees by nature).
+guarantees by nature). A span's clock is ``time.time_ns()``, Unix-epoch
+nanoseconds: the clock of ``torch.profiler``'s (kineto's) timestamps, so
+a span and the trace's events line up.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import time
 from bisect import bisect_left
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 LabelKey = Tuple[Tuple[str, str], ...]
 MetricKey = Tuple[str, LabelKey]
@@ -252,26 +264,66 @@ class NullRecorder:
 NULL_RECORDER = NullRecorder()
 
 
-class _Span:
-    """Wall-clock timing context for one named stage; folds into the
-    recorder's per-(name, labels) :class:`SpanStats` on exit."""
+@dataclass
+class SpanRecord:
+    """One span of a recorder's timeline. ``start_ns`` and ``end_ns`` are
+    host ``time.time_ns()`` at entry and exit (``end_ns`` 0 while open);
+    ``parent`` the timeline index of the span open around it (-1: none);
+    ``request`` the id of the request or step it belongs to (its own
+    ``request`` or ``step`` label, else its parent's; None: neither).
+    ``counts`` holds what counters moved inside it, by name. The torch side
+    sets ``device_start_ns`` and ``device_end_ns``, on the same clock, from
+    the device events it keeps in ``marks`` until it reads them
+    (:func:`repro_torch.obs.device.resolve`)."""
 
-    __slots__ = ("_rec", "_key", "_t0")
+    name: str
+    labels: LabelKey
+    start_ns: int
+    parent: int = -1
+    request: Optional[str] = None
+    end_ns: int = 0
+    counts: Optional[Dict[str, float]] = None
+    marks: Any = None
+    device_start_ns: Optional[int] = None
+    device_end_ns: Optional[int] = None
+
+    def labels_dict(self) -> Dict[str, str]:
+        return dict(self.labels)
+
+
+class _Span:
+    """Wall-clock timing context for one named stage: appends its
+    :class:`SpanRecord` to the recorder's timeline on entry, closes it and
+    folds its duration into the recorder's per-(name, labels)
+    :class:`SpanStats` on exit. ``record`` is the open span's record."""
+
+    __slots__ = ("_rec", "_key", "record")
 
     def __init__(self, rec: "MetricsRecorder", key: MetricKey):
         self._rec = rec
         self._key = key
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        rec, (name, labels) = self._rec, self._key
+        parent = rec.open_spans[-1] if rec.open_spans else -1
+        own = dict(labels)
+        request = own.get("request", own.get("step"))
+        if request is None and parent >= 0:
+            request = rec.timeline[parent].request
+        rec.open_spans.append(len(rec.timeline))
+        self.record = SpanRecord(name, labels, 0, parent, request)
+        rec.timeline.append(self.record)
+        self.record.start_ns = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
+        r = self.record
+        r.end_ns = time.time_ns()
+        self._rec.open_spans.pop()
         stats = self._rec.spans.get(self._key)
         if stats is None:
             stats = self._rec.spans[self._key] = SpanStats()
-        stats.add(dt)
+        stats.add((r.end_ns - r.start_ns) / 1e9)
         return False
 
 
@@ -279,7 +331,14 @@ class MetricsRecorder(NullRecorder):
     """The real recorder: dict-backed registries keyed by
     ``(name, sorted-labels)``. Single-threaded by design (the whole stack
     is); fork-pool workers each get their own instance and snapshots are
-    merged after the join."""
+    merged after the join. A span opened on another thread while one is
+    open here (autograd's device thread, inside ``train.backward``) nests
+    under it: the open spans are one stack, not one a thread.
+
+    ``timeline`` holds every span in order of entry (:class:`SpanRecord`),
+    ``open_spans`` the timeline indices of the spans open now, innermost
+    last; ``device_clock`` is the torch side's reference for device times
+    (:mod:`repro_torch.obs.device`), None until its first span."""
 
     enabled = True
 
@@ -290,6 +349,9 @@ class MetricsRecorder(NullRecorder):
         self.hists: Dict[MetricKey, Histogram] = {}
         self.spans: Dict[MetricKey, SpanStats] = {}
         self.events: List[Event] = []
+        self.timeline: List[SpanRecord] = []
+        self.open_spans: List[int] = []
+        self.device_clock: Any = None
 
     # -- write paths ---------------------------------------------------------
     def counter(self, name: str, value: float = 1.0, **labels) -> None:

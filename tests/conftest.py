@@ -50,6 +50,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running dense-tail test; needs --runslow")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card; skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
