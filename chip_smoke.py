@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` and holds each kernel against its plain PyTorch version on the card
 at the kernel test shapes of ``tests/test_kernels.py`` (and, for the tick
-kernel, :data:`TICK_EDGE_CASES`) and at the main-path shapes. It then drives
+kernel, :data:`TICK_EDGE_CASES`) and at the main-path shapes; the loss
+head's split kernel also at roberta-large's loss chunk, timed there beside
+the chunk's products on the tensor cores and in float32. It then drives
 the port's two paths at full size and checks that each launched its
 kernels:
 
@@ -254,6 +256,9 @@ ENCODER_DECODE_CASES = [
     for dt in ("bfloat16", "float32")
     for B, T, H, KV, vl in ((2, 1500, 8, 8, 1500), (3, 1536, 14, 2, 1100))]
 ATTN_TOL = {"bfloat16": 3e-2, "float32": 2e-5}  # tests/test_kernels.py's
+# (rows, d_model, vocab) of roberta-large's loss chunk in the benchmark's
+# training cell: 41 positions x B 128 (models/model.py LOSS_CHUNK_BYTES)
+LOSS_CHUNK = (41 * 128, 1024, 50265)
 
 # the serving main path: full-width llama3.2-1b, 8 requests, 1024-token
 # prompts, 128 new tokens (a cache of cache_len(1152) = 1536 slots)
@@ -408,8 +413,9 @@ def compare_tick(got, want, label: str) -> float:
 
 def reset_counts() -> None:
     """Zero every kernel wrapper's launch count."""
-    from repro_torch.kernels import decode_attention, flash_attention, tick
+    from repro_torch.kernels import bf16_split, decode_attention, flash_attention, tick
     tick.polca_tick_loop.launches = 0
+    bf16_split.split3.launches = 0
     wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_lse,
                 flash_attention.flash_attention_bwd, decode_attention.decode_attention,
                 decode_attention.decode_attention_lse)
@@ -549,6 +555,71 @@ def check_attention_cases(dev) -> None:
         gap = compare_close(got, want, ATTN_TOL[dt], f"decode case {i}")
         print(f"kernel decode_attention B={B} T={T} H={H} KV={KV} hd={hd} {dt} "
               f"valid_len={vl} softcap={cap}: max abs gap {gap:.3e}")
+
+
+def check_loss_head(dev) -> dict:
+    """The loss head's tensor-core path (``models/model.py::
+    TensorCoreLogits``) on the card: the split kernel (``csrc/bf16_split.cu``)
+    against its plain version bit for bit at small and ragged shapes in
+    four layouts (a slice of wider rows, a row broadcast, a transpose, a
+    column step) and at roberta-large's loss chunk (:data:`LOSS_CHUNK`), its
+    pieces summing to the cotangent exactly; its device time beside its
+    bound and the plain version's; the chunk's products on the tensor cores
+    (the forward; the backward's split, ``dh`` and ``dw``) beside the
+    float32 products they replace. The kernels row of the split."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bf16_split
+    from repro_torch.models import model as model_mod
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for rows, cols, out_cols in ((1, 1, 4), (3, 7, 8), (5, 9, 12), (64, 251, 256)):
+        base = torch.randn(rows, cols + 3, device=dev, generator=gen) * 1e-3
+        wide = torch.randn(cols, rows + 3, device=dev, generator=gen)
+        layouts = {"row slice": base[:, :cols],  # read in place, rows cols + 3 apart
+                   "row broadcast": base[:1, :cols].expand(rows, cols),  # stride (0, 1)
+                   "transposed": wide[:, :rows].T,  # columns strided
+                   "column step": torch.randn(rows, 2 * cols, device=dev, generator=gen)[:, ::2]}
+        for name, x in layouts.items():
+            if not torch.equal(bf16_split.split3(x, out_cols),
+                               bf16_split.split3_plain(x.contiguous(), out_cols)):
+                raise AssertionError(f"bf16_split3 {rows} x {cols} -> {out_cols} ({name}): "
+                                     f"kernel != plain")
+    M, D, V = LOSS_CHUNK
+    Vp = -(-V // model_mod.VOCAB_PAD) * model_mod.VOCAB_PAD
+    h = torch.randn(M, D, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(D, V, device=dev, generator=gen) / D ** 0.5).bfloat16()
+    wp = F.pad(w, (0, Vp - V))
+    g = torch.softmax(3 * torch.randn(M, V, device=dev, generator=gen), -1) / (M * 41)
+    g[torch.arange(M, device=dev), torch.randint(0, V, (M,), device=dev, generator=gen)] -= \
+        1 / (M * 41)
+    pieces = bf16_split.split3(g, Vp)
+    if not torch.equal(pieces, bf16_split.split3_plain(g, Vp)):
+        raise AssertionError("bf16_split3 at the loss chunk: kernel != plain")
+    if not torch.equal(pieces[:, :, :V].double().sum(0), g.double()):
+        raise AssertionError("bf16_split3 at the loss chunk: the pieces miss the cotangent")
+    del pieces
+    ms = device_ms([lambda: bf16_split.split3(g, Vp)], calls=4)
+    plain_ms = device_ms([lambda: bf16_split.split3_plain(g, Vp)], calls=2)
+    bound, by = bound_ms(0.0, 4 * M * V + 3 * 2 * M * Vp)
+    flops = 2 * M * D * V
+    prod = {
+        "tc_forward_ms": device_ms([lambda: model_mod.TensorCoreLogits.apply(h, w)], 4),
+        "tc_backward_ms": device_ms([lambda: model_mod.cotangent_products(g, h, wp)], 2),
+        "f32_forward_ms": device_ms([lambda: torch.matmul(h.float(), w.float())], 2),
+        "f32_backward_ms": device_ms([lambda: (g @ w.float().T, h.float().T @ g)], 2),
+        "forward_bound_ms": bound_ms(flops, 0.0)[0],
+        "backward_bound_ms": bound_ms(2 * 3 * flops, 0.0)[0]}
+    say(f"(loss head) bf16_split3 at M {M} x V {V} (Vp {Vp}): bit-equal to plain, exact; "
+        f"{ms:.4f} ms (bound {bound:.4f}, {by}; plain {plain_ms:.4f}); products: forward "
+        f"{prod['tc_forward_ms']:.4f} ms on the tensor cores (bound "
+        f"{prod['forward_bound_ms']:.4f}) against {prod['f32_forward_ms']:.4f} in float32, "
+        f"backward (split, dh, dw) {prod['tc_backward_ms']:.4f} (bound "
+        f"{prod['backward_bound_ms']:.4f}) against {prod['f32_backward_ms']:.4f}")
+    return {"name": "bf16_split3", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bf16_split.cu", "replaces": None,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "loss_chunk": list(LOSS_CHUNK), **prod}
 
 
 def rel_gap(a, b) -> float:
@@ -2453,6 +2524,15 @@ BF16_STORAGE_RTOL = 2.0 ** -7
 TRAIN_CONDITIONED = ("jamba-1.5-large-398b", "flan-t5-xxl", "whisper-base")
 
 
+def loss_chunks(cfg, B: int, S: int) -> int:
+    """The chunks of positions of one ``loss_fn`` at B x S
+    (``models/model.py`` LOSS_CHUNK_BYTES of float32 logits a chunk): one
+    ``bf16_split3`` launch each in a bf16 step's backward."""
+    from repro_torch.models import model as model_mod
+    n = S if cfg.is_encoder_only else S - 1
+    return -(-n // max(1, model_mod.LOSS_CHUNK_BYTES // (4 * B * cfg.vocab_size)))
+
+
 def train_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     return {"forward": fa.flash_attention_lse.launches,
@@ -2896,6 +2976,7 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline, device_put_batch
+    from repro_torch.kernels import bf16_split
     from repro_torch.launch import train
     from repro_torch.launch.steps import build_train_step
     from repro_torch.optim import make_optimizer
@@ -2936,6 +3017,11 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
     per_layer = _attn_layers(cfg)
     if n != {"forward": 2 * per_layer * steps, "backward": per_layer * steps, "serving_flash": 0}:
         raise AssertionError(f"(k) {arch}: {steps} steps launched {n}")
+    # the loss head's backward on the tensor cores: one split a chunk a step
+    split, chunks = bf16_split.split3.launches, loss_chunks(cfg, B, S)
+    if split != chunks * steps:
+        raise AssertionError(f"(k) {arch}: {steps} steps launched bf16_split3 {split} times, "
+                             f"want {chunks} a step ({chunks * steps})")
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(k) {arch}: non-finite loss {losses}")
@@ -2945,7 +3031,8 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
            "step_s": step_s, "first_step_s": history[0]["dt"], "run_s": run_s,
            "tokens_per_s": B * S / step_s, "peak_gb": peak_gb, "losses": losses,
            "launches_per_step": per_layer, "forward_launches_per_step": 2 * per_layer,
-           "launches": n["backward"], "forward_launches": n["forward"]}
+           "launches": n["backward"], "forward_launches": n["forward"],
+           "split_launches": split, "split_launches_per_step": chunks}
     extra = ""
     if arch == "roberta-large":
         reset_counts()
@@ -2984,7 +3071,8 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         f"{step_s:.4f} s/step (first {history[0]['dt']:.3f} s), {B * S / step_s:.0f} tokens/s, "
         f"peak {peak_gb:.2f} GB, run {run_s:.2f} s; loss "
         f"{' -> '.join(f'{x:.5f}' for x in losses)}; flash {per_layer} backward and "
-        f"{2 * per_layer} tensor-core forward launches a step{extra}")
+        f"{2 * per_layer} tensor-core forward launches a step, bf16_split3 {split} launches "
+        f"({chunks} a step){extra}")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3699,6 +3787,7 @@ def main() -> int:
     # 3. each kernel against its plain version, on the card
     check_tick_cases(dev)
     check_attention_cases(dev)
+    loss_head_row = check_loss_head(dev)
 
     sc = main_scenario()
     spec = EnsembleSpec(sc, n_seeds=MAIN_MEMBERS, seed0=1)
@@ -3944,6 +4033,10 @@ def main() -> int:
                         **{k: v for k, v in row.items() if isinstance(v, dict)}})
     kernels.append(train_row)
     kernels.append(lse_row)
+    split_run = train_row["trained"]["roberta-large"]
+    kernels.append({**loss_head_row, "launches": split_run["split_launches"],
+                    "launches_per_step": split_run["split_launches_per_step"],
+                    "llama_launches": train_row["trained"]["llama3.2-1b"]["split_launches"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

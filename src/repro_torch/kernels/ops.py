@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bf16_split as _split
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import tick as _tick
@@ -59,6 +60,15 @@ def decode_attention_lse(q, k, v, valid_len, *, softcap=0.0):
     fn = (_dec.decode_attention_lse_plain if q.device.type == "cpu"
           else _dec.decode_attention_lse)
     return fn(q, k, v, valid_len, softcap=softcap)
+
+
+def bf16_split3(x, out_cols):
+    """The exact three-way bf16 split of a float32 matrix [rows, cols] into
+    [3, rows, out_cols] (hi, lo, lo2; zero past ``cols``):
+    ``csrc/bf16_split.cu`` on CUDA tensors, :func:`~repro_torch.kernels.
+    bf16_split.split3_plain` on CPU tensors."""
+    fn = _split.split3_plain if x.device.type == "cpu" else _split.split3
+    return fn(x, out_cols)
 
 
 def polca_tick(occ, bscale, row_budget, *, consts, oob_ticks, brake_ticks,

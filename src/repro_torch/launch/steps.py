@@ -202,9 +202,10 @@ def _placed(x, spec, ctx):
 
 def _logits_out(cfg, logits, ctx):
     """The rank's logits block [B_l, 1, V_l] as a DTensor laid out as the
-    reference's logits (``("batch", "seq", "vocab")``)."""
+    reference's logits (``("batch", "seq", "vocab")``), made contiguous (the
+    tensor-core product's logits are a view of its padded output)."""
     spec = (ctx.rules.get("batch"), None, ctx.axes_for(cfg.vocab_size, "vocab") or None)
-    return _placed(logits, spec, ctx)
+    return _placed(logits.contiguous(), spec, ctx)
 
 
 def _cache_out(cfg, cache, ctx, B: int, T: int, enc_S: int):

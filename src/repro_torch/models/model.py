@@ -39,7 +39,9 @@ Training (:func:`loss_fn`) runs the whole sequence through the stack at
 once: causal for decoders, bidirectional for an encoder-only model, each
 layer's body recomputed in the backward pass per ``cfg.remat_policy``
 (:func:`_remat`), with the flash kernel's gradient kernel
-(``ops.flash_attention`` under grad) as every attention's backward.
+(``ops.flash_attention`` under grad) as every attention's backward. The
+logits' products of bf16 operands on a card run on the tensor cores
+(:class:`TensorCoreLogits`), forward and backward.
 
 **Sharded steps.** Given a :class:`MeshCtx` (a ``DeviceMesh`` and the
 rules), :func:`loss_fn`, :func:`prefill_fn` and :func:`decode_fn` run on
@@ -92,6 +94,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -553,9 +556,108 @@ def _embed_inputs(cfg, params, batch, ctx=None, specs=None):
     return h, enc_out
 
 
+# the counter of the logits' forward matrix products (the loss head's, a
+# checkpointed chunk's recompute included, and the serving steps'), one a
+# product, labelled ``path``: "tensor_core" or "float32"
+LOGITS_PRODUCTS = "model.logits_products"
+# the tensor-core product pads the vocab dim of its weight and output to a
+# multiple of this many columns: a row stride that is not a multiple of 16
+# bytes takes cuBLAS off its tensor-core kernels (roberta-large's 50265
+# columns: 4.2 ms against 0.93 ms a loss chunk on an H100)
+VOCAB_PAD = 8
+
+
+def tensor_core_operands(h, w) -> bool:
+    """Whether ``h @ w`` runs on the tensor cores: bf16 operands on a card.
+    A product of two bf16 values is exact in float32, so a bf16 GEMM with
+    float32 accumulation forms the reference's products. float32 operands
+    keep the float32 product (their values are not bf16), and so do CPU
+    and ``meta`` tensors (the CPU has no bf16 GEMM with a float32 output)
+    and fp16 operands (fp16's five exponent bits cannot hold the pieces of
+    a float32 cotangent)."""
+    return h.is_cuda and h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+
+
+def _mm_f32(a, b):
+    """``a @ b`` of bf16 matrices accumulated in float32, float32 out: one
+    tensor-core GEMM on a card; on the CPU the float32 product of their
+    values (the same products, which the tests run in its place)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class TensorCoreLogits(torch.autograd.Function):
+    """float32 ``h @ w`` of bf16 ``h`` [M, D] and ``w`` [D, V] on the
+    tensor cores, forward and backward. The forward is one GEMM, ``w`` and
+    the output padded to :data:`VOCAB_PAD` columns (the result a view of
+    the first V). The backward splits the float32 cotangent exactly into
+    three bf16 pieces (``ops.bf16_split3``) and forms ``dh`` as the sum of
+    the pieces' three products with ``w.T`` and ``dw`` as one product of
+    ``h.T`` stacked thrice with the pieces stacked along M; each is
+    accumulated in float32 and returned in its operand's dtype, as
+    autograd's casts around the float32 product return it.
+
+    Every product of two bf16 values is exact, but an H100's tensor cores
+    add them in float32 with truncation: at roberta-large's loss chunk the
+    logits lie 1.0e-6 of their norm from float64 and ``dh`` 5.9e-5 (the
+    float32 product: 2.5e-7 and 8.8e-7), each entry within one float32 unit
+    of its terms' magnitudes per 16 products (PERF.md §6), far inside the
+    bf16 rounding that ``dh`` and ``dw`` then take."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        V = w.shape[1]
+        Vp = -(-V // VOCAB_PAD) * VOCAB_PAD
+        wp = w if Vp == V else torch.nn.functional.pad(w, (0, Vp - V))
+        ctx.save_for_backward(h, wp)
+        return _mm_f32(h, wp)[:, :V]
+
+    @staticmethod
+    def backward(ctx, g):
+        h, wp = ctx.saved_tensors
+        dh, dw = cotangent_products(g, h, wp, *ctx.needs_input_grad)
+        return (None if dh is None else dh.to(h.dtype),
+                None if dw is None else dw.to(wp.dtype))
+
+
+def cotangent_products(g, h, wp, need_h=True, need_w=True):
+    """float32 (``g @ w.T``, ``h.T @ g``) of a float32 cotangent ``g`` [M, V]
+    and bf16 ``h`` [M, D] and ``w`` [D, V], ``wp`` being ``w`` padded to
+    Vp >= V columns, each None where not needed (:class:`TensorCoreLogits`'s
+    backward): ``g`` split exactly into three bf16 pieces of Vp columns,
+    each product a sum over the pieces accumulated in float32."""
+    V, Vp = g.shape[1], wp.shape[1]
+    pieces = ops.bf16_split3(g, Vp)
+    dh = dw = None
+    if need_h:
+        dh = _mm_f32(pieces[0], wp.T)
+        dh += _mm_f32(pieces[1], wp.T)
+        dh += _mm_f32(pieces[2], wp.T)
+    if need_w:
+        dw = _mm_f32(h.repeat(3, 1).T, pieces.view(-1, Vp))[:, :V]
+    return dh, dw
+
+
+def logits_product(h, w):
+    """float32 ``h @ w`` of activations ``h`` [..., D] and an unembedding
+    ``w`` [D, V]: :class:`TensorCoreLogits` where
+    :func:`tensor_core_operands`, else the float32 product of their values.
+    Each call (a forward product; its backward's are not counted) counts
+    one in :data:`LOGITS_PRODUCTS` where a span would record."""
+    tc = tensor_core_operands(h, w)
+    rec = obs.active()
+    if rec is not None:
+        rec.counter(LOGITS_PRODUCTS, path="tensor_core" if tc else "float32")
+    if tc:
+        return TensorCoreLogits.apply(h.reshape(-1, h.shape[-1]), w).unflatten(
+            0, h.shape[:-1])
+    return torch.matmul(h.float(), w.float())
+
+
 def _logits(cfg, params, h):
     """float32 logits of [B, S, D] activations (the JAX einsum's float32
-    accumulation of activation-dtype operands)."""
+    accumulation of activation-dtype operands; :func:`logits_product`)."""
     act = cfg.activation_dtype
     if cfg.is_encoder_only:
         w = params["mlm_head"].to(act)
@@ -563,7 +665,7 @@ def _logits(cfg, params, h):
         w = params["embed"].to(act).T
     else:
         w = params["unembed"].to(act)
-    logits = torch.matmul(h.float(), w.float())
+    logits = logits_product(h, w)
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits

@@ -15,6 +15,9 @@ A site in the port opens ``span(name, ...)`` around a stage of a step
   recorder that this module keeps (:func:`session`), which outlives the
   profiler session, until :func:`new_session` starts another.
 
+A site's counter (``model.logits_products``) goes to the same recorder,
+where :func:`active` finds one.
+
 Otherwise a site costs that one check and gets the shared null span: no
 label dict, no CUDA event, no timestamp. Nothing records inside a step
 that would change its outputs; with CUDA initialised, a span records a
@@ -63,8 +66,10 @@ def new_session() -> None:
     _SESSION = None
 
 
-def _active() -> Optional[MetricsRecorder]:
-    """The recorder a span made now records into, or None."""
+def active() -> Optional[MetricsRecorder]:
+    """The recorder a span made now records into, or None. A site that
+    counts (``rec.counter``) asks this once and records only where it is
+    not None."""
     global _SESSION
     rec = metrics.get_recorder()
     if rec.enabled:
@@ -164,7 +169,7 @@ def span(name: str, *, request: Optional[int] = None, step: Optional[int] = None
     null span unless a recorder records now. ``request``, ``step``,
     ``tokens`` and ``layer`` are its labels where given; ``alloc`` counts
     the allocator's calls to the device inside it."""
-    rec = _active()
+    rec = active()
     if rec is None:
         return _NULL_SPAN
     labels = tuple((k, str(v)) for k, v in (("layer", layer), ("request", request),
