@@ -420,10 +420,13 @@ def _mlp(cfg, p, y, ctx, d_ff):
     return out if ctx is None else coll.all_reduce(out, ctx.group(ctx.axes_for(d_ff, "mlp")))
 
 
-def _ffn_apply(cfg, bp, h, ctx=None):
+def _ffn_apply(cfg, bp, h, ctx=None, layer=None):
+    """The block's FFN after its norm, residual added: an MoE block's a
+    ``model.moe`` span labelled ``layer``."""
     y = rmsnorm(h, bp["ln_mlp"], cfg.norm_eps)
     if "moe" in bp:
-        out = moe_mod.moe_apply(cfg, bp["moe"], y, ctx)
+        with obs.span("model.moe", layer=layer):
+            out = moe_mod.moe_apply(cfg, bp["moe"], y, ctx)
         if "shared_mlp" in bp:
             out = out + _mlp(cfg, bp["shared_mlp"], y, ctx, cfg.moe_shared_expert_ff)
     else:
@@ -433,7 +436,7 @@ def _ffn_apply(cfg, bp, h, ctx=None):
     return h + out
 
 
-def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
+def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None, layer=None):
     """One block of the pattern at full sequence length: a Mamba block, or
     self attention (LOCAL: within the window) and, in an encoder-decoder
     model's decoder, cross attention over ``enc_out``; then the FFN."""
@@ -452,7 +455,7 @@ def _block_forward(cfg, bp, kind, h, *, positions, causal, enc_out, ctx=None):
             h = h + attn_mod.cross_attention(
                 cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps), enc_kv, ctx)
     if _has_ffn(cfg, kind):
-        h = _ffn_apply(cfg, bp, h, ctx)
+        h = _ffn_apply(cfg, bp, h, ctx, layer)
     return h
 
 
@@ -464,9 +467,10 @@ def _group_forward(cfg, gp, h, positions, enc_out, index, *, causal, ctx=None, s
     if ctx is not None:
         gp = ctx.gather(gp, specs, stacked=True)
     for i, kind in enumerate(cfg.pattern):
-        with obs.span("model.block", layer=index * len(cfg.pattern) + i):
+        layer = index * len(cfg.pattern) + i
+        with obs.span("model.block", layer=layer):
             h = _block_forward(cfg, gp[f"b{i}"], kind, h, positions=positions, causal=causal,
-                               enc_out=enc_out, ctx=ctx)
+                               enc_out=enc_out, ctx=ctx, layer=layer)
     return h
 
 
@@ -893,7 +897,8 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
         if ctx is not None:
             gp = ctx.gather(gp, specs["decoder"], stacked=True)
         for i, (kind, (W, ring)) in enumerate(zip(cfg.pattern, blocks)):
-            with obs.span("model.block", layer=l * len(cfg.pattern) + i):
+            layer = l * len(cfg.pattern) + i
+            with obs.span("model.block", layer=layer):
                 bp, bc = gp[f"b{i}"], cache[f"b{i}"]
                 if kind == MAMBA:
                     y, (state, tails) = ssm_mod.ssm_forward(
@@ -920,7 +925,7 @@ def prefill_fn(cfg: ModelConfig, params, batch, max_len: int,
                             ctx)
                         bc["cross_k"][l], bc["cross_v"][l] = enc_kv
                 if _has_ffn(cfg, kind):
-                    h = _ffn_apply(cfg, bp, h, ctx)
+                    h = _ffn_apply(cfg, bp, h, ctx, layer)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h[:, -1:, :]), cache
 
@@ -985,6 +990,6 @@ def decode_fn(cfg: ModelConfig, params, token, pos: int, cache, ctx: Optional[Me
                         cfg, bp["cross"], rmsnorm(h, bp["ln_cross"], cfg.norm_eps),
                         (bc["cross_k"][l], bc["cross_v"][l]), ctx)
             if _has_ffn(cfg, kind):
-                h = _ffn_apply(cfg, bp, h, ctx)
+                h = _ffn_apply(cfg, bp, h, ctx, l * len(cfg.pattern) + i)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, h), cache

@@ -35,6 +35,12 @@ split into its four steps so that they can be timed apart:
    per expert and weight on that expert's run of sorted rows;
 4. :func:`combine`: each row weighted by its renormalised probability and
    summed into its token.
+
+Where a recorder records (:mod:`repro_torch.obs.device`), the expert FFN
+is a ``moe.experts`` span, and :func:`dispatch` counts a block's
+``moe.host_reads`` (its one read), ``moe.rows`` (the rows each expert
+computes, label ``expert``: the global id) and ``moe.dropped_rows`` (the
+rows the capacity cut); ``model.py`` opens ``model.moe`` around the block.
 """
 
 from __future__ import annotations
@@ -47,7 +53,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
+from repro_torch.obs import device as obs
 from repro_torch.parallel import collectives as coll
+
+HOST_READS = "moe.host_reads"
+ROWS = "moe.rows"
+DROPPED_ROWS = "moe.dropped_rows"
 
 
 def moe_layout(cfg: ModelConfig, n_shards: int) -> Tuple[int, int, int, int]:
@@ -164,6 +175,12 @@ def dispatch(cfg: ModelConfig, topi, e_start: int = 0, n_local: int = 0,
     for r in routed:
         sizes.append(min(r, room))
         room -= sizes[-1]
+    rec = obs.active()
+    if rec is not None:
+        obs.count(rec, HOST_READS)
+        for e, n in enumerate(sizes):
+            obs.count(rec, ROWS, n, expert=e_start + e)
+        obs.count(rec, DROPPED_ROWS, sum(routed) - sum(sizes))
     return sel[:sum(sizes)], sizes
 
 
@@ -230,7 +247,9 @@ def moe_apply(cfg: ModelConfig, p: dict, x, ctx=None):
     topw, topi = route(cfg, p["router"], x_flat)
     e_start = ((ep.index if ep else 0) // f_shards) * n_local
     sel, group_sizes = dispatch(cfg, topi, e_start, n_local, e_shards)
-    out_rows = expert_ffn(cfg, p, x_flat[sel // cfg.moe_top_k], group_sizes)
+    xs = x_flat[sel // cfg.moe_top_k]
+    with obs.span("moe.experts"):
+        out_rows = expert_ffn(cfg, p, xs, group_sizes)
     out = coll.all_reduce(combine(out_rows, sel, topw, topi), ep).reshape(B, S, D)
     if batch is not None:
         n = B // batch.size

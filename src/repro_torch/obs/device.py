@@ -4,7 +4,8 @@ side of :mod:`repro_torch.obs.metrics`).
 A site in the port opens ``span(name, ...)`` around a stage of a step
 (``serve.prefill``, ``train.step`` and its ``train.forward``,
 ``train.backward`` and ``train.optimizer``, each ``model.block``,
-``model.loss_head``). The span records into a
+``model.loss_head``, an MoE block's ``model.moe`` and its
+``moe.experts``). The span records into a
 :class:`~repro_torch.obs.metrics.MetricsRecorder`'s timeline in two cases:
 
 * the installed recorder is enabled (``obs.recording(MetricsRecorder())``):
@@ -16,7 +17,10 @@ A site in the port opens ``span(name, ...)`` around a stage of a step
   profiler session, until :func:`new_session` starts another.
 
 A site's counter (``model.logits_products``) goes to the same recorder,
-where :func:`active` finds one.
+where :func:`active` finds one; :func:`count` (the MoE block's
+``moe.rows``, ``moe.dropped_rows``, ``moe.host_reads``) also adds it to
+the ``counts`` of every span open there, so a span holds what moved
+inside it.
 
 Otherwise a site costs that one check and gets the shared null span: no
 label dict, no CUDA event, no timestamp. Nothing records inside a step
@@ -157,7 +161,7 @@ class _DeviceSpan(_Span):
         if self._alloc:
             calls, retries = _alloc_stats()
             moved = calls - self._before[0]
-            r.counts = {ALLOC_CALLS: moved}
+            r.counts = {**(r.counts or {}), ALLOC_CALLS: moved}
             self._rec.counter(ALLOC_CALLS, moved, span=r.name,
                               alloc_retries=retries - self._before[1])
         return False
@@ -175,6 +179,29 @@ def span(name: str, *, request: Optional[int] = None, step: Optional[int] = None
     labels = tuple((k, str(v)) for k, v in (("layer", layer), ("request", request),
                                             ("step", step), ("tokens", tokens)) if v is not None)
     return _DeviceSpan(rec, (name, labels), alloc)  # labels in label_key's (sorted) order
+
+
+def count_key(name: str, **labels) -> str:
+    """The key of counter ``name`` with ``labels`` in a span's ``counts``:
+    ``moe.rows{expert=3}``; ``name`` alone without labels."""
+    if not labels:
+        return name
+    return name + "{" + ",".join(f"{k}={v}" for k, v in sorted(labels.items())) + "}"
+
+
+def count(rec: MetricsRecorder, name: str, value: float = 1.0, **labels) -> None:
+    """``value`` added to ``rec``'s counter ``name`` (``labels``) and to the
+    ``counts`` of every span open in ``rec``, under ``name`` and, with
+    labels, under :func:`count_key` too. The site asks :func:`active` for
+    ``rec`` once and counts only where it is not None."""
+    rec.counter(name, value, **labels)
+    keys = (name,) if not labels else (name, count_key(name, **labels))
+    for i in rec.open_spans:
+        r = rec.timeline[i]
+        if r.counts is None:
+            r.counts = {}
+        for k in keys:
+            r.counts[k] = r.counts.get(k, 0) + value
 
 
 def resolve(rec: MetricsRecorder) -> List[SpanRecord]:
