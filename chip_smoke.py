@@ -413,9 +413,10 @@ def compare_tick(got, want, label: str) -> float:
 
 def reset_counts() -> None:
     """Zero every kernel wrapper's launch count."""
-    from repro_torch.kernels import bf16_split, decode_attention, flash_attention, tick
+    from repro_torch.kernels import bf16_split, decode_attention, flash_attention, rmsnorm, tick
     tick.polca_tick_loop.launches = 0
     bf16_split.split3.launches = 0
+    rmsnorm.rmsnorm_fwd.launches = rmsnorm.rmsnorm_bwd.launches = 0
     wrappers = (flash_attention.flash_attention, flash_attention.flash_attention_lse,
                 flash_attention.flash_attention_bwd, decode_attention.decode_attention,
                 decode_attention.decode_attention_lse)
@@ -620,6 +621,233 @@ def check_loss_head(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/bf16_split.cu", "replaces": None,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None, "loss_chunk": list(LOSS_CHUNK), **prod}
+
+
+# the norm at the cells' shapes: (label, x's shape, x's dtype, w's dtype);
+# each cell's norm weights are float32 (the configurations' param dtype)
+RMSNORM_SHAPES = (("roberta-large train", (128 * 512, 1024), "bfloat16", "float32"),
+                  ("gpt-neox-20b prefill", (2048, 6144), "bfloat16", "float32"),
+                  ("mixtral-8x7b prefill", (8192, 4096), "bfloat16", "float32"),
+                  ("qwen3-8b qk-norm", (8, 1024, 32, 128), "bfloat16", "float32"))
+# widths and rows of the edge cases: one thread a row (8, 24) to 512 (16384)
+RMSNORM_EDGES = ((1, 8), (3, 24), (77, 64), (5, 96), (33, 128), (7, 256), (9, 1000),
+                 (2, 3584), (3, 7168), (2, 8192), (1, 16384), (0, 1024))
+RMSNORM_EPS = 1e-5
+# the kernels against the plain chain on the card: y entry by entry (one
+# bf16 unit in the last place; float32 1e-5: the row's sum is taken in
+# another order); dx and dw by the norm of their gap, within REL of the
+# plain chain's norm plus one unit in the last place of its largest entry
+# (a single rounding that lands the other way, which alone moves a small
+# case's norm by more than REL). bf16 dx reads 1.6e-5 to 1.8e-5 at the
+# cells' shapes on an H100: a kernel rounding g or w to bf16 reads ~1e-3.
+RMSNORM_DX_REL = {"bfloat16": 1e-4, "float32": 1e-5}
+RMSNORM_DW_REL = {"bfloat16": 4e-3, "float32": 1e-4}
+RMSNORM_UNIT = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
+# each of y, dx and dw no further from float64 than the plain chain's is,
+# norm against norm: within this factor of the chain's gap (outputs in bf16
+# read 1.000, float32 dw up to 1.3 where only the sum's order differs),
+# plus a floor of float32 rounding
+RMSNORM_F64_RATIO = {"bfloat16": 1.05, "float32": 2.0}
+RMSNORM_F64_FLOOR = 2.0 ** -22
+
+
+def rmsnorm_grad_gap(got, want, rel_limit) -> tuple:
+    """(gap, limit): ``got``'s gap from ``want`` by norm, and its limit:
+    ``rel_limit[dtype]`` of ``want``'s norm plus :data:`RMSNORM_UNIT` of its
+    largest entry."""
+    d = str(want.dtype).split(".")[1]
+    w = want.double()
+    gap = float((got.double() - w).norm())
+    return gap, rel_limit[d] * float(w.norm()) + RMSNORM_UNIT[d] * float(w.abs().max())
+
+
+def within_ulp(got, want) -> bool:
+    """Each entry of ``got`` within one unit in the last place of
+    ``want``'s entry (bf16: 2**-8 of its binade's top; float32: 1e-5
+    relative)."""
+    import torch
+    g, w = got.double(), want.double()
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        return bool(((g - w).abs() <= torch.ldexp(torch.ones_like(w), e - 8)).all())
+    return bool(((g - w).abs() <= 1e-5 * w.abs() + 1e-30).all())
+
+
+def rmsnorm_counts() -> dict:
+    from repro_torch.kernels import rmsnorm
+    return {"rmsnorm_fwd": rmsnorm.rmsnorm_fwd.launches,
+            "rmsnorm_bwd": rmsnorm.rmsnorm_bwd.launches}
+
+
+def norm_counts(rec) -> dict:
+    """The recorder's ``model.rmsnorm`` counts by path ("kernel", "plain")."""
+    from repro_torch.models.layers import RMSNORM
+    return {dict(labels)["path"]: int(v) for (name, labels), v in rec.counters.items()
+            if name == RMSNORM}
+
+
+def prefill_norms(eng, batch) -> tuple:
+    """:func:`norm_counts` of one ``eng.prefill`` of ``batch`` under a
+    recorder, and the norm kernels' launches in it (:func:`rmsnorm_counts`)."""
+    from repro_torch.obs import metrics as obs_metrics
+    reset_counts()
+    with obs_metrics.recording(obs_metrics.MetricsRecorder()) as rec:
+        eng.prefill(eng.params, batch)
+    return norm_counts(rec), rmsnorm_counts()
+
+
+def check_rmsnorm(dev) -> dict:
+    """The fused RMSNorm (``csrc/rmsnorm.cu``) against the plain chain
+    (autograd of ``kernels/rmsnorm.py::rmsnorm_plain``) on the card, at
+    :data:`RMSNORM_EDGES` in every dtype pair and at :data:`RMSNORM_SHAPES`:
+    ``y`` within one unit in the last place (:func:`within_ulp`), ``dx``
+    and ``dw`` within :data:`RMSNORM_DX_REL` and :data:`RMSNORM_DW_REL` of
+    their norms (:func:`rmsnorm_grad_gap`), two backward runs bit-equal, and
+    each of ``y``, ``dx`` and ``dw`` no further from float64 than the
+    chain's (:data:`RMSNORM_F64_RATIO`);
+    then each shape's forward (``y`` alone, as serving runs it), forward
+    with ``r`` saved and backward timed against its bytes at 3.35 TB/s and
+    the plain chain's, and PyTorch's ``F.rms_norm`` beside them. The
+    kernels row of the norm (the roberta shape's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rms
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def draw(shape, xd, wd):
+        x = (torch.randn(shape, device=dev, generator=gen) * 2).to(getattr(torch, xd))
+        w = (1 + 0.3 * torch.randn(shape[-1], device=dev, generator=gen)).to(getattr(torch, wd))
+        dy = torch.randn(shape, device=dev, generator=gen).to(x.dtype)
+        return x, w, dy
+
+    def plain_grads(x, w, dy):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = rms.rmsnorm_plain(xg, wg, RMSNORM_EPS)
+        return (y.detach(), *torch.autograd.grad(y, (xg, wg), dy))
+
+    def f64_grads(x, w, dy):
+        xg, wg = x.double().requires_grad_(), w.double().requires_grad_()
+        y = xg * torch.rsqrt((xg * xg).mean(-1, keepdim=True) + RMSNORM_EPS) * wg
+        return (y.detach(), *torch.autograd.grad(y, (xg, wg), dy.double()))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+    def check(label, x, w, dy) -> dict:
+        xd, wd = str(x.dtype).split(".")[1], str(w.dtype).split(".")[1]
+        y, r = rms.rmsnorm_fwd(x, w, RMSNORM_EPS, save=True)
+        y_serve, none = rms.rmsnorm_fwd(x, w, RMSNORM_EPS)
+        dx, dw = rms.rmsnorm_bwd(x, dy, r, w)
+        dx2, dw2 = rms.rmsnorm_bwd(x, dy, r, w)
+        yp, dxp, dwp = plain_grads(x, w, dy)
+        torch.cuda.synchronize()
+        if none is not None or not torch.equal(y, y_serve):
+            raise AssertionError(f"(rmsnorm) {label}: y differs with and without r saved")
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"(rmsnorm) {label}: two backward runs differ")
+        if x.numel() == 0:
+            return {}
+        if not within_ulp(y, yp):
+            raise AssertionError(f"(rmsnorm) {label}: y beyond one unit in the last place of "
+                                 f"the plain chain's (max gap "
+                                 f"{float((y.float() - yp.float()).abs().max()):.3e})")
+        e = {"dx_rel": rel(dx, dxp), "dw_rel": rel(dw, dwp)}
+        for name, got, want, lim in (("dx", dx, dxp, RMSNORM_DX_REL),
+                                     ("dw", dw, dwp, RMSNORM_DW_REL)):
+            gap, limit = rmsnorm_grad_gap(got, want, lim)
+            if not gap <= limit:
+                raise AssertionError(f"(rmsnorm) {label}: {name} {gap:.3e} from the plain "
+                                     f"chain's by norm, limit {limit:.3e} ({e[name + '_rel']:.3e} "
+                                     f"of its norm)")
+        y64, dx64, dw64 = f64_grads(x, w, dy)
+        e.update(y_rel_f64=rel(y, y64), plain_y_rel_f64=rel(yp, y64),
+                 dx_rel_f64=rel(dx, dx64), plain_dx_rel_f64=rel(dxp, dx64),
+                 dw_rel_f64=rel(dw, dw64), plain_dw_rel_f64=rel(dwp, dw64),
+                 y_max_abs_err=float((y.float() - yp.float()).abs().max()))
+        for name, d in (("y", xd), ("dx", xd), ("dw", wd)):
+            own, chain = e[name + "_rel_f64"], e[f"plain_{name}_rel_f64"]
+            if not own <= RMSNORM_F64_RATIO[d] * chain + RMSNORM_F64_FLOOR:
+                raise AssertionError(f"(rmsnorm) {label}: {name} {own:.3e} of its norm from "
+                                     f"float64, the plain chain's {chain:.3e}")
+        return e
+
+    for rows, cols in RMSNORM_EDGES:
+        for xd in ("bfloat16", "float32"):
+            for wd in ("bfloat16", "float32"):
+                check(f"{rows} x {cols} x {xd} w {wd}", *draw((rows, cols), xd, wd))
+    # a row-sliced x (read through a copy), a weight at an odd offset
+    x, w, dy = draw((64, 1032), "bfloat16", "float32")
+    check("a column slice", x[:, 1:1025], w[1:1025], dy[:, 1:1025].contiguous())
+    say(f"(rmsnorm) {len(RMSNORM_EDGES) * 4 + 1} edge cases (rows of 8 to 16384, every "
+        f"dtype pair, an empty input, x and w sliced off 16 bytes): y within one unit in the "
+        f"last place of the plain chain's, dx and dw within {RMSNORM_DX_REL} / "
+        f"{RMSNORM_DW_REL} of their norms (plus one unit of the largest entry), each no "
+        f"further from float64 than {RMSNORM_F64_RATIO} x the chain's (+ "
+        f"{RMSNORM_F64_FLOOR:.1e}), backward bit-equal run to run")
+
+    rows_out = {}
+    for label, shape, xd, wd in RMSNORM_SHAPES:
+        x, w, dy = draw(shape, xd, wd)
+        e = check(label, x, w, dy)
+        n, D = x.numel(), shape[-1]
+        rows = n // D
+        sx, sw = x.element_size(), w.element_size()
+        fwd_bytes = 2 * n * sx + D * sw
+        fwd_saved_bytes = fwd_bytes + 4 * rows
+        bwd_bytes = 3 * n * sx + 4 * rows + 2 * D * sw
+        _, r = rms.rmsnorm_fwd(x, w, RMSNORM_EPS, save=True)
+        t = {"fwd_ms": device_ms([lambda: rms.rmsnorm_fwd(x, w, RMSNORM_EPS)], calls=8),
+             "fwd_saved_ms": device_ms([lambda: rms.rmsnorm_fwd(x, w, RMSNORM_EPS,
+                                                                save=True)], calls=8),
+             "bwd_ms": device_ms([lambda: rms.rmsnorm_bwd(x, dy, r, w)], calls=8),
+             "plain_fwd_ms": device_ms([lambda: rms.rmsnorm_plain(x, w, RMSNORM_EPS)],
+                                       calls=4)}
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def plain_step():
+            y = rms.rmsnorm_plain(xg, wg, RMSNORM_EPS)
+            return torch.autograd.grad(y, (xg, wg), dy)
+
+        def kernel_step():
+            y = rms.RMSNorm.apply(xg, wg, RMSNORM_EPS)
+            return torch.autograd.grad(y, (xg, wg), dy)
+
+        t["plain_fwd_bwd_ms"] = cuda_ms(plain_step, reps=10)
+        t["fwd_bwd_ms"] = cuda_ms(kernel_step, reps=10)
+        t["fwd_bound_ms"] = bound_ms(0.0, fwd_bytes)[0]
+        t["fwd_saved_bound_ms"] = bound_ms(0.0, fwd_saved_bytes)[0]
+        t["bwd_bound_ms"] = bound_ms(0.0, bwd_bytes)[0]
+        try:
+            wl = w.to(x.dtype)
+            t["library_ms"] = device_ms([lambda: F.rms_norm(x, (D,), wl, RMSNORM_EPS)],
+                                        calls=4)
+        except (RuntimeError, AttributeError, TypeError) as err:
+            t["library_ms"], t["library_error"] = None, str(err).splitlines()[0]
+        rows_out[label] = {"shape": list(shape), "x_dtype": xd, "w_dtype": wd,
+                           "parts": rms._parts(rms._DTYPES[x.dtype], rms._DTYPES[w.dtype],
+                                               rows, D, dev.index), **e, **t}
+        lib = ("not timed: " + t["library_error"] if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        say(f"(rmsnorm) {label} {list(shape)} x {xd}, w {wd}: forward {t['fwd_ms']:.4f} ms "
+            f"(bound {t['fwd_bound_ms']:.4f}; with r saved {t['fwd_saved_ms']:.4f}, bound "
+            f"{t['fwd_saved_bound_ms']:.4f}; plain chain {t['plain_fwd_ms']:.4f}), backward "
+            f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound_ms']:.4f}, "
+            f"{rows_out[label]['parts']} partial rows of dw); forward and backward through "
+            f"autograd, host included: {t['fwd_bwd_ms']:.4f} ms against the plain chain's "
+            f"{t['plain_fwd_bwd_ms']:.4f}; F.rms_norm (bf16 weights) {lib}; y max gap "
+            f"{e['y_max_abs_err']:.3e}, dx / dw {e['dx_rel']:.3e} / {e['dw_rel']:.3e} of their "
+            f"norms from the plain chain's; from float64: y {e['y_rel_f64']:.3e} (plain "
+            f"{e['plain_y_rel_f64']:.3e}), dx {e['dx_rel_f64']:.3e} "
+            f"({e['plain_dx_rel_f64']:.3e}), dw {e['dw_rel_f64']:.3e} "
+            f"({e['plain_dw_rel_f64']:.3e})")
+        del x, w, dy, r, xg, wg
+        torch.cuda.empty_cache()
+    main = rows_out["roberta-large train"]
+    return {"name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": None, "max_abs_err": main["y_max_abs_err"], "ms": main["fwd_saved_ms"],
+            "plain_ms": main["plain_fwd_ms"], "bound_ms": main["fwd_saved_bound_ms"],
+            "bound_by": "bytes", "library_ms": main["library_ms"], "shapes": rows_out}
 
 
 def rel_gap(a, b) -> float:
@@ -841,6 +1069,9 @@ MOE_SSM_SERVE = [
     ("kimi-k2-1t-a32b", 1, 8, 1024, 32, {"flash": "tensor_core", "decode": "tensor_core"}),
     ("mamba2-370m", None, 8, 1024, 128, None),
 ]
+# a prefill's model.rmsnorm counts where a cell runs the same model and
+# depth: 2 a block and the final norm, all on the kernel
+CELL_NORMS = {"gpt-neox-20b": 2 * 44 + 1, "mixtral-8x7b": 2 * 16 + 1}
 MOE_SSM_SMOKE = ("mixtral-8x7b", "kimi-k2-1t-a32b", "mamba2-370m", "jamba-1.5-large-398b")
 # (j) the encoder-only, encoder-decoder and vision-stub models at full
 # width, every layer, random weights from seed 0 in bf16: (arch, layers
@@ -1195,6 +1426,13 @@ def serve_full_width(dev) -> dict:
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / n_out * 1e3 if n_out else None
         del cache, full, tok, logits
+        (norms, norm_launches), want_norms = prefill_norms(eng, batch), CELL_NORMS.get(arch)
+        if (norms.get("plain") or not norms.get("kernel")
+                or want_norms not in (None, norms["kernel"])
+                or norm_launches != {"rmsnorm_fwd": norms["kernel"], "rmsnorm_bwd": 0}):
+            raise AssertionError(f"{arch}: a prefill's norms took the paths {norms} and "
+                                 f"launched {norm_launches}; want every one on the forward "
+                                 f"kernel ({want_norms or 'any number'})")
         rel, rel_own, flips_own, flips, margin = routed_gap(eng, toks, extra)
         if not rel < SERVE_REL_TOL:
             raise AssertionError(f"{arch}: prefill->decode mismatch rel={rel:.3e}")
@@ -1204,7 +1442,8 @@ def serve_full_width(dev) -> dict:
                                  f">= {NEAR_TIE}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         served[arch] = {"layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers,
-                        **launches, "by_variant": by_variant}
+                        **launches, "by_variant": by_variant, "norms": norms,
+                        "norm_launches": norm_launches}
         routing = ("" if not cfg.moe_num_experts else
                    f"; the split path's own routing differed from the full "
                    f"prefill's in {flips_own} expert choices ({flips_init} with the "
@@ -1228,7 +1467,9 @@ def serve_full_width(dev) -> dict:
             f"{first_s:.4f} s; {B * S / prefill_s:.0f} prompt tokens/s), {decode}, "
             f"generate {gen_s:.3f} s, {B * n_out / gen_s:.1f} output "
             f"tokens/s; peak memory {peak_gb:.2f} GB; "
-            f"launches {launches} (by variant {by_variant}); prefill->decode rel "
+            f"launches {launches} (by variant {by_variant}); a prefill's norms {norms}, "
+            f"launching {norm_launches}; "
+            f"prefill->decode rel "
             f"gap {rel:.3e} < {SERVE_REL_TOL} with attention weights at "
             f"contraction fan-in, {rel_init:.3e} with the JAX init (not "
             f"gated){routing}; sample {out[0, :8].tolist()}")
@@ -2929,7 +3170,8 @@ def traced_split(step, state, batch) -> dict:
     from the program's own ``train.forward``, ``train.backward`` (which
     recomputes each layer's forward under full remat) and
     ``train.optimizer`` spans: device time between the CUDA events at
-    each span's entry and exit, the call run under ``torch.profiler``."""
+    each span's entry and exit, the call run under ``torch.profiler``; and
+    its ``model.rmsnorm`` counts (:func:`norm_counts`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs import device as obs
@@ -2937,11 +3179,12 @@ def traced_split(step, state, batch) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]):
         _, m = step(state, batch)
         m["loss"].item()
-    spans = obs.resolve(obs.session())
+    rec = obs.session()
+    spans, norms = obs.resolve(rec), norm_counts(rec)
     obs.new_session()
     s = {r.name: (r.device_end_ns - r.device_start_ns) / 1e9 for r in spans}
     return {"forward_s": s["train.forward"], "backward_s": s["train.backward"],
-            "optimizer_s": s["train.optimizer"]}
+            "optimizer_s": s["train.optimizer"], "norms": norms}
 
 
 def step_peak_start() -> tuple:
@@ -3022,6 +3265,13 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
     if split != chunks * steps:
         raise AssertionError(f"(k) {arch}: {steps} steps launched bf16_split3 {split} times, "
                              f"want {chunks} a step ({chunks * steps})")
+    # each block's two norms forward and again in its recompute (full remat),
+    # and the final norm; a backward launch for each
+    norm_n, L = rmsnorm_counts(), cfg.num_layers
+    want_norm = {"rmsnorm_fwd": (4 * L + 1) * steps, "rmsnorm_bwd": (2 * L + 1) * steps}
+    if cfg.remat_policy != "full" or norm_n != want_norm:
+        raise AssertionError(f"(k) {arch}: {steps} steps launched the norm kernels {norm_n}, "
+                             f"want {want_norm} (remat {cfg.remat_policy})")
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"(k) {arch}: non-finite loss {losses}")
@@ -3032,7 +3282,9 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
            "tokens_per_s": B * S / step_s, "peak_gb": peak_gb, "losses": losses,
            "launches_per_step": per_layer, "forward_launches_per_step": 2 * per_layer,
            "launches": n["backward"], "forward_launches": n["forward"],
-           "split_launches": split, "split_launches_per_step": chunks}
+           "split_launches": split, "split_launches_per_step": chunks,
+           "norm_launches": norm_n,
+           "norm_launches_per_step": {k: v // steps for k, v in norm_n.items()}}
     extra = ""
     if arch == "roberta-large":
         reset_counts()
@@ -3059,11 +3311,16 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         out["split"] = traced_split(step, state, batch)
         step_peak = torch.cuda.max_memory_allocated()
         sp = out["split"]
+        # each block's two norms forward and in its recompute, and the final norm
+        if sp["norms"] != {"kernel": 4 * cfg.num_layers + 1}:
+            raise AssertionError(f"(k) {arch}: a step's norms took the paths {sp['norms']}; "
+                                 f"want {4 * cfg.num_layers + 1} on the kernel")
         extra = (f"; crash before step run {TRAIN_FAIL_AT}: restored the step-2 checkpoint, "
                  f"step runs {replayed}, final state within {gap:.3e} of the clean run's "
                  f"(atol {REPLAY_ATOL}), every step run's loss "
                  f"{'equal to' if same_loss else 'NOT bit-equal to'} the clean run's; one step split: forward {sp['forward_s']:.4f} s, backward "
-                 f"{sp['backward_s']:.4f} s, optimizer {sp['optimizer_s']:.4f} s")
+                 f"{sp['backward_s']:.4f} s, optimizer {sp['optimizer_s']:.4f} s; its norms "
+                 f"{sp['norms']}")
     out.update(step_peak_bytes=step_peak, step_held_bytes=held, step_gc_freed_bytes=freed)
     say(f"(k) training {arch} full width ({cfg.num_layers} layers, {out['params'] / 1e6:.1f}M "
         f"params, {cfg.optimizer}, B {B} x S {S}, {steps} steps"
@@ -3072,7 +3329,8 @@ def train_full_width(dev, arch: str, ckpt_root: str) -> dict:
         f"peak {peak_gb:.2f} GB, run {run_s:.2f} s; loss "
         f"{' -> '.join(f'{x:.5f}' for x in losses)}; flash {per_layer} backward and "
         f"{2 * per_layer} tensor-core forward launches a step, bf16_split3 {split} launches "
-        f"({chunks} a step){extra}")
+        f"({chunks} a step), the norm kernels {norm_n} ({4 * L + 1} forward and "
+        f"{2 * L + 1} backward a step){extra}")
     del state
     torch.cuda.empty_cache()
     return out
@@ -3388,7 +3646,7 @@ def sharded_train(dev, mesh, arch: str, shape=None, turns: int = SHARDED_TURNS,
                 times[way].append(time.perf_counter() - t0)
             ways[way] = (step, st, placed)
             if turn == 0:
-                first[way] = (metrics, train_counts())
+                first[way] = (metrics, {**train_counts(), **rmsnorm_counts()})
         if turn == 0:  # both ways took the same steps from the same state
             gap = max(float((a.float() - b.to_local().float()).abs().max()) for a, b in zip(
                 tree_leaves(ways["plain"][1]), tree_leaves(ways["sharded"][1])))
@@ -3396,7 +3654,7 @@ def sharded_train(dev, mesh, arch: str, shape=None, turns: int = SHARDED_TURNS,
             if pm != sm or gap != 0.0:
                 raise AssertionError(f"{tag} {arch}: the 1 x 1 sharded steps differ from the "
                                      f"plain steps: {sm} vs {pm}, state gap {gap:.3e}")
-            if pc != sc:
+            if pc != sc or not sc["rmsnorm_bwd"]:
                 raise AssertionError(f"{tag} {arch}: kernel launches {sc} vs the plain "
                                      f"steps' {pc}")
     med = {way: sorted(t)[len(t) // 2] for way, t in times.items()}
@@ -3447,10 +3705,13 @@ def sharded_serve(dev, mesh, arch: str, layers, B: int, S: int, n_out: int) -> d
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S))
     reset_counts()
     want = plain.generate(toks, n_out)
-    plain_launches = counts()["decode_attention"]
+    plain_launches, plain_norms = counts()["decode_attention"], rmsnorm_counts()
     reset_counts()
     got = sharded.generate(toks, n_out)
     lse_launches = dec.decode_attention_lse.launches
+    if rmsnorm_counts() != plain_norms or not plain_norms["rmsnorm_fwd"]:
+        raise AssertionError(f"(m) {arch}: the sharded engine's norm launches "
+                             f"{rmsnorm_counts()}, the plain engine's {plain_norms}")
     if not np.array_equal(got, want):
         raise AssertionError(f"(m) {arch}: the sharded engine's tokens differ from the "
                              f"plain engine's at {int((got != want).sum())} places")
@@ -3788,6 +4049,7 @@ def main() -> int:
     check_tick_cases(dev)
     check_attention_cases(dev)
     loss_head_row = check_loss_head(dev)
+    rmsnorm_row = check_rmsnorm(dev)
 
     sc = main_scenario()
     spec = EnsembleSpec(sc, n_seeds=MAIN_MEMBERS, seed0=1)
@@ -4037,6 +4299,12 @@ def main() -> int:
     kernels.append({**loss_head_row, "launches": split_run["split_launches"],
                     "launches_per_step": split_run["split_launches_per_step"],
                     "llama_launches": train_row["trained"]["llama3.2-1b"]["split_launches"]})
+    kernels.append({**rmsnorm_row, "norms": {
+        "roberta-large train step": split_run["split"]["norms"],
+        **{f"{arch} prefill": served[arch]["norms"] for arch in CELL_NORMS}},
+        "launches": split_run["norm_launches"],
+        "launches_per_step": split_run["norm_launches_per_step"],
+        "prefill_launches": {arch: served[arch]["norm_launches"] for arch in CELL_NORMS}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

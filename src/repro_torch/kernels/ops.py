@@ -5,7 +5,8 @@ the hand-written kernel (or raises), a CPU tensor takes the kernel's plain
 PyTorch version. There is no fallback from one to the other. A ``meta``
 tensor (the dry run's data-less trace) takes the kernel's traceable op of
 :mod:`repro_torch.kernels.traced`: the kernel's outputs and flop count,
-nothing launched.
+nothing launched. ``rmsnorm`` alone has no plain branch: its one caller
+(``models.layers.rmsnorm``) picks the path.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels import bf16_split as _split
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import tick as _tick
 from repro_torch.kernels import traced as _traced
 
@@ -69,6 +71,19 @@ def bf16_split3(x, out_cols):
     bf16_split.split3_plain` on CPU tensors."""
     fn = _split.split3_plain if x.device.type == "cpu" else _split.split3
     return fn(x, out_cols)
+
+
+def rmsnorm(x, w, eps):
+    """RMS norm of ``x`` [..., D] over its last dim, scaled by ``w`` [D], by
+    ``csrc/rmsnorm.cu``: :class:`~repro_torch.kernels.rmsnorm.RMSNorm` when
+    grad is enabled and ``x`` or ``w`` requires it, else the forward kernel
+    alone, saving nothing. CUDA tensors only, with no plain branch: what the
+    kernels do not take (:func:`~repro_torch.kernels.rmsnorm.kernel_takes`)
+    raises ``ValueError``, and ``models.layers.rmsnorm``, the one caller,
+    sends it to :func:`~repro_torch.kernels.rmsnorm.rmsnorm_plain`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _rms.RMSNorm.apply(x, w, eps)
+    return _rms.rmsnorm_fwd(x, w, eps)[0]
 
 
 def polca_tick(occ, bscale, row_budget, *, consts, oob_ticks, brake_ticks,

@@ -13,8 +13,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamSpec
+from repro_torch.obs import device as obs
 from repro_torch.parallel import collectives as coll
 
 
@@ -22,17 +25,34 @@ def rmsnorm_spec(dim: int, logical=("act_embed",)) -> ParamSpec:
     return ParamSpec((dim,), logical, init="ones")
 
 
+# the counter of the norm's forward calls (a checkpointed block's recompute
+# included), one a call where a span would record, labelled ``path``:
+# "kernel" (``csrc/rmsnorm.cu``) or "plain" (PyTorch's float32 ops)
+RMSNORM = "model.rmsnorm"
+
+
 def rmsnorm(x, w, eps: float, group: Optional[coll.Group] = None):
     """RMS norm over the last dim. With ``group`` that dim is split over
     the group's ranks (``x`` and ``w`` the rank's block): the mean square
-    is the all-reduced sum of squares over the whole dim."""
+    is the all-reduced sum of squares over the whole dim.
+
+    The fused kernels (``ops.rmsnorm``) take the call where there is no
+    ``group`` and they take the input (:func:`~repro_torch.kernels.rmsnorm.
+    kernel_takes`: CUDA tensors of float32 or bf16, the last dim a multiple
+    of 8); elsewhere (CPU and ``meta`` tensors, a ``group``, other widths)
+    PyTorch's ops compute the same float32 chain."""
+    kernel = group is None and _rms.kernel_takes(x, w)
+    rec = obs.active()
+    if rec is not None:
+        rec.counter(RMSNORM, path="kernel" if kernel else "plain")
+    if kernel:
+        return ops.rmsnorm(x, w, eps)
+    if group is None:
+        return _rms.rmsnorm_plain(x, w, eps)
     dtype = x.dtype
     x = x.float()
-    if group is None:
-        var = torch.mean(x * x, dim=-1, keepdim=True)
-    else:
-        var = coll.all_reduce(torch.sum(x * x, dim=-1, keepdim=True), group) / (
-            x.shape[-1] * group.size)
+    var = coll.all_reduce(torch.sum(x * x, dim=-1, keepdim=True), group) / (
+        x.shape[-1] * group.size)
     x = x * torch.rsqrt(var + eps)
     return (x * w.float()).to(dtype)
 

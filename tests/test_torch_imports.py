@@ -246,7 +246,7 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_LOADED", {})
     assert _build.sources() == ["bf16_split", "decode_attention", "flash_attention",
-                                "flash_attention_bwd", "tick"]
+                                "flash_attention_bwd", "rmsnorm", "tick"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("tick")
     assert not (tmp_path / "kernels").exists()
